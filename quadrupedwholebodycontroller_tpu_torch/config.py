@@ -1,0 +1,103 @@
+"""Typed configuration objects of the port.
+
+Field names and defaults are those of the reference YAML schemas
+(controller: config/params_controller.yaml, planner: config/params_planner.yaml)
+and of the JAX package's `config.py`, so one dict of overrides builds both
+sides in a test.  The port keeps its own copy: it imports nothing of the
+JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+GRAVITY = 9.81
+# "infinity" for one-sided QP bounds: finite, the qpOASES INFTY convention.
+# Never `inf`: the kernels test finiteness as |x| < 1e19.
+QP_INF = 1.0e20
+
+NUM_JOINTS = 12
+NUM_LEGS = 4
+NV = 6 + NUM_JOINTS  # floating-base velocity dimension (18)
+# QP decision vector: [com accel (6); joint accel (12); GRFs (12); slacks (12)]
+QP_NUM_VARS = 6 + NUM_JOINTS + 3 * NUM_LEGS + 3 * NUM_LEGS  # 42
+# QP rows: dynamics (6) + stance feet (12) + friction (16) + torque limits
+# (12) + swing tracking (24)
+QP_NUM_CONSTRAINTS = 6 + 3 * NUM_LEGS + 4 * NUM_LEGS + NUM_JOINTS + 6 * NUM_LEGS  # 70
+
+# Leg order used everywhere (jacobian stacking, contact flags, reference)
+LEG_NAMES = ("LH", "LF", "RF", "RH")
+
+
+@dataclasses.dataclass(frozen=True)
+class ControllerParams:
+    """WBC gains/limits (reference config/params_controller.yaml)."""
+
+    friction: float = 1.0
+    loop_rate: float = 400.0
+    max_torque: float = 80.0
+    kp: float = 6000.0
+    kp_z: float = 10000.0
+    kd: float = 1800.0
+    ki: float = 0.0
+    kp_swing: float = 250.0
+    kd_swing: float = 20.0
+    slack_weight: float = 1000.0
+    initial_reference_pose: Sequence[float] = (0.0, 0.0, 0.50, 0.0, 0.0, 0.0)
+    # analytic Tdot/Jdot instead of the reference's finite differences;
+    # not ported yet (control/wbc.py raises when set)
+    exact_derivatives: bool = False
+    exact_epilogue: bool = False
+
+    @property
+    def dt(self) -> float:
+        return 1.0 / self.loop_rate
+
+
+@dataclasses.dataclass(frozen=True)
+class QPSolverParams:
+    """Batched OSQP-style ADMM + active-set polish settings.
+
+    The defaults are the shipped configuration of the main path.  Fields
+    marked "kept for parity" exist so both packages build from one dict;
+    the port raises `NotImplementedError` where a caller sets one to a
+    value whose code path has not been ported (see `ops/qp.py`)."""
+
+    iterations: int = 40          # ADMM iterations per hot-started solve
+    cold_iterations: int = 200    # budget when some warm start is all-zero
+    rho: float = 0.5              # base ADMM penalty
+    rho_eq_scale: float = 1000.0  # penalty boost on equality rows
+    sigma: float = 0.0            # 0 = constraint-space (z, y) ADMM kernel
+    alpha: float = 1.6            # over-relaxation
+    scaling_iters: int = 4        # Ruiz equilibration sweeps
+    ns_iters: int = 30            # cold Newton-Schulz iterations
+    ns_warm_iters: int = 2        # NS iterations restarting from the cache
+    ns_warm_iters_polish: int = 0  # same for the polish Schur inverse; 0 =
+                                  # the carried inverse is used as it is
+    polish: bool = True
+    polish_rounds: int = 2        # round 2 is the active-set DROP round
+    polish_reg: float = 1e-9
+    polish_refine: int = 5        # coupled refinement passes per round
+    rescue_threshold: float = 3e-3  # relative KKT above which the staged
+                                  # tail rescue fires; <= 0 disables
+    rescue_iterations: int = 40
+    rescue_polish_rounds: int = 2
+    rescue_batch: int = 128       # rescue the top-k worst scenarios only
+    rescue_stages: int = 3
+    rescue_comp_refine: int = 2   # compensated (double-f32) passes
+    comp_final_refine: int = 0    # kept for parity; not ported
+    cold_batch: int = 512         # per-scenario warm gate: scenarios whose
+                                  # contacts switched are re-inverted cold
+                                  # on a compacted top-k sub-batch
+    drop_batch: int = 64          # cap of the compacted polish drop round
+    drop_fire_tol: float = 0.0    # kept for parity; not ported
+    drop_warm_iters: int = 0      # kept for parity; not ported
+    drop_sinv_refresh: int = 0    # kept for parity; not ported
+    drop_ns_iters: int = 0        # kept for parity; not ported
+    ns_cold_prec: str = "high"    # accepted and ignored: the port runs the
+    ns_cold_tail: int = 10        # cold chains at full float32 throughout
+    cond_hoist: int = 0           # kept for parity; not ported
+    drop_approx_rank: int = 0     # kept for parity; not ported
+    rescue_round2_batch: int = 32  # cap of the rescue's compacted round 2+
+    solve_layout: str = "minor"   # kept for parity and ignored: the port
+                                  # is batch-major end to end

@@ -1,0 +1,84 @@
+"""State carried across frameworks: numpy in, the port's types out.
+
+A caller that holds state as numpy arrays (a checkpoint, a recorded
+trajectory, the leaves of another framework's pytrees passed through
+`np.asarray`) builds the port's tuples here, so both sides compute on
+identical state, including a mid-replay WBCCarry and a warm QPCache.
+Everything is batch-major; a cache kept batch-minor elsewhere is
+transposed by its owner before it gets here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from quadrupedwholebodycontroller_tpu_torch.control.wbc import (
+    Reference,
+    RobotObservation,
+    WBCCarry,
+)
+from quadrupedwholebodycontroller_tpu_torch.models.robot_model import (
+    _TENSOR_FIELDS,
+    RobotModel,
+)
+from quadrupedwholebodycontroller_tpu_torch.ops.qp import QPCache, QPState
+
+_STATIC_FIELDS = ("name", "joint_names", "frame_names", "parent", "frame_body")
+
+
+def _t(a, dtype, device):
+    # np.array copies: the source may be a read-only view (a broadcast, the
+    # buffer of another framework's array)
+    return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+
+def _b(a, device):
+    return torch.as_tensor(np.array(a), device=device).to(torch.bool)
+
+
+def model_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> RobotModel:
+    """d: the static topology tuples plus every numeric leaf as an array."""
+    return RobotModel(
+        **{k: (d[k] if isinstance(d[k], str) else tuple(d[k])) for k in _STATIC_FIELDS},
+        **{k: _t(d[k], dtype, device) for k in _TENSOR_FIELDS},
+    )
+
+
+def obs_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> RobotObservation:
+    return RobotObservation(**{k: _t(d[k], dtype, device) for k in RobotObservation._fields})
+
+
+def ref_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> Reference:
+    return Reference(**{k: _t(d[k], dtype, device) for k in Reference._fields})
+
+
+def carry_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> WBCCarry:
+    """d: WBCCarry's fields, with qp_warm a dict (or tuple) of x, z, y."""
+    w = d["qp_warm"]
+    w = w if isinstance(w, dict) else dict(zip(QPState._fields, w))
+    return WBCCarry(
+        **{k: _t(d[k], dtype, device)
+           for k in ("old_T", "old_J_st", "old_J_sw", "tdot_inv",
+                     "integral_error", "prev_contacts")},
+        switch_flag=_b(d["switch_flag"], device),
+        deriv_valid=_b(d["deriv_valid"], device),
+        qp_warm=QPState(**{k: _t(w[k], dtype, device) for k in QPState._fields}),
+    )
+
+
+def cache_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> QPCache:
+    """d: kinv (B, n, n), hinv (B, n, n), sinv (B, m, m), batch-major."""
+    return QPCache(**{k: _t(d[k], dtype, device).contiguous() for k in QPCache._fields})
+
+
+def to_numpy(tree):
+    """Tensors of a (nested) tuple / dict / NamedTuple as numpy arrays."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
+    return tree

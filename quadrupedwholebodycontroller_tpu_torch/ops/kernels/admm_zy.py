@@ -1,0 +1,142 @@
+"""Constraint-space (sigma = 0) ADMM loop + residual epilogue (kernel K1).
+
+`admm_zy_iterations_res` replaces the JAX package's Pallas pair
+`ops/pallas/qp_kernel.py::admm_zy_iterations_res` (`_admm_zy_kernel` +
+`_zy_epilogue_kernel`).  With sigma = 0 the (z, y) recursion closes over
+A K^-1 A^T, applied as three chained matvecs on the scenario's resident
+(A, K^-1); the relaxed x is recovered exactly from the accumulator
+V_{k+1} = (1-alpha) V_k + alpha (rho z_k - y_k):
+
+    x_K = (1-alpha)^K x_0 + K^-1 A^T V_K - (1 - (1-alpha)^K) K^-1 g.
+
+The epilogue scores the UNSCALED pair against the unscaled bounds: relative
+primal / dual residuals (OSQP normalization) and the sign violation sv.
+
+On a CUDA tensor the wrapper launches `csrc/admm_zy.cu` (one launch for
+loop and epilogue); on a CPU tensor it takes `admm_zy_iterations_res_plain`.
+"""
+from __future__ import annotations
+
+import torch
+
+from quadrupedwholebodycontroller_tpu_torch.ops.kernels import build
+
+LAUNCHES = 0
+PLAIN_CALLS = 0
+
+_BIG = 1e20   # one-sided bounds are clipped to +-1e20; finite is |.| < 1e19
+
+
+def _mv(M, v):
+    return torch.einsum("bij,bj->bi", M, v)
+
+
+def _mvt(M, w):
+    return torch.einsum("bij,bi->bj", M, w)
+
+
+def kkt_epilogue(ax, hx, aty, gu, y_u, lo, uo):
+    """Relative primal / dual residuals and sign violation of an unscaled
+    pair from its products (shared by the ADMM and polish plain versions;
+    bounds already clipped to +-1e20)."""
+    fin_l = torch.where(torch.abs(lo) < 1e19, torch.abs(lo), torch.zeros_like(lo))
+    fin_u = torch.where(torch.abs(uo) < 1e19, torch.abs(uo), torch.zeros_like(uo))
+    finite_b = torch.maximum(torch.amax(fin_l, dim=-1), torch.amax(fin_u, dim=-1))
+    one = torch.ones_like(finite_b)
+    pscale = torch.maximum(
+        one, torch.maximum(torch.amax(torch.abs(ax), dim=-1), finite_b))
+    dscale = torch.maximum(
+        one,
+        torch.maximum(
+            torch.amax(torch.abs(hx), dim=-1),
+            torch.maximum(torch.amax(torch.abs(aty), dim=-1),
+                          torch.amax(torch.abs(gu), dim=-1)),
+        ),
+    )
+    clipped = torch.minimum(torch.maximum(ax, lo), uo)
+    pr = torch.amax(torch.abs(ax - clipped), dim=-1) / pscale
+    du = torch.amax(torch.abs(hx + gu + aty), dim=-1) / dscale
+    big = torch.full_like(ax, _BIG)
+    zero = torch.zeros_like(ax)
+    eqr = (uo - lo) <= 1e-9
+    d_up = torch.where(torch.abs(uo) < 1e19, torch.clamp_min(uo - ax, 0.0), big)
+    d_lo = torch.where(torch.abs(lo) < 1e19, torch.clamp_min(ax - lo, 0.0), big)
+    dist = torch.where(eqr, zero, torch.where(y_u > 0, d_up, d_lo))
+    sv = torch.amax(
+        torch.minimum(torch.abs(y_u) / dscale[:, None], dist / pscale[:, None]),
+        dim=-1,
+    )
+    return pr, du, sv
+
+
+def admm_zy_iterations_res_plain(Kinv, A, g, l, u, rho, x0, z0, y0,
+                                 Hs, l_orig, u_orig, d, e,
+                                 *, iters: int, alpha: float):
+    """Plain PyTorch version, in the kernel's operation order."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    l = torch.clamp(l, -_BIG, _BIG)
+    u = torch.clamp(u, -_BIG, _BIG)
+    lo = torch.clamp(l_orig, -_BIG, _BIG)
+    uo = torch.clamp(u_orig, -_BIG, _BIG)
+    inv_rho = 1.0 / rho
+    kg = _mv(Kinv, g)
+    c = -_mv(A, kg)
+    z, y, V = z0, y0, torch.zeros_like(z0)
+    for _ in range(iters):
+        t = rho * z - y
+        z_t = _mv(A, _mv(Kinv, _mvt(A, t))) + c
+        z_rel = alpha * z_t + (1.0 - alpha) * z
+        z_n = torch.minimum(torch.maximum(z_rel + y * inv_rho, l), u)
+        y = y + rho * (z_rel - z_n)
+        V = (1.0 - alpha) * V + alpha * t
+        z = z_n
+    w0 = (1.0 - alpha) ** iters
+    x = w0 * x0 + _mv(Kinv, _mvt(A, V)) - (1.0 - w0) * kg
+    pr, du, sv = kkt_epilogue(
+        _mv(A, x) / e, _mv(Hs, x) / d, _mvt(A, y) / d, g / d, e * y, lo, uo)
+    return x, z, y, pr, du, sv
+
+
+def admm_zy_iterations_res(Kinv, A, g, l, u, rho, x0, z0, y0,
+                           Hs, l_orig, u_orig, d, e,
+                           *, iters: int, alpha: float):
+    """Kinv (B,n,n) = K^-1 in SCALED space; A/g/l/u/rho scaled; Hs the
+    scaled H; l_orig/u_orig the unscaled bounds; d/e the Ruiz scalings.
+    Returns (x, z, y, pr, du, sv), x/z/y in scaled space."""
+    global LAUNCHES
+    if A.device.type == "cpu":
+        return admm_zy_iterations_res_plain(
+            Kinv, A, g, l, u, rho, x0, z0, y0, Hs, l_orig, u_orig, d, e,
+            iters=iters, alpha=alpha,
+        )
+    B, m, n = A.shape
+    l = torch.clamp(l, -_BIG, _BIG)
+    u = torch.clamp(u, -_BIG, _BIG)
+    lo = torch.clamp(l_orig, -_BIG, _BIG)
+    uo = torch.clamp(u_orig, -_BIG, _BIG)
+    suffix = build.check_inputs(A, {
+        "Kinv": (Kinv, (B, n, n)), "A": (A, (B, m, n)), "g": (g, (B, n)),
+        "l": (l, (B, m)), "u": (u, (B, m)), "rho": (rho, (B, m)),
+        "x0": (x0, (B, n)), "z0": (z0, (B, m)), "y0": (y0, (B, m)),
+        "Hs": (Hs, (B, n, n)), "l_orig": (lo, (B, m)), "u_orig": (uo, (B, m)),
+        "d": (d, (B, n)), "e": (e, (B, m)),
+    })
+    if max(n, m) > 1024:
+        raise ValueError(f"admm_zy kernel takes n, m <= 1024, got {n}, {m}")
+    new = lambda *shape: torch.empty(shape, dtype=A.dtype, device=A.device)
+    outs = (new(B, n), new(B, m), new(B, m), new(B), new(B), new(B))
+    if B == 0:
+        return outs
+    alpha = float(alpha)
+    w0 = (1.0 - alpha) ** int(iters)
+    build.launch(
+        "admm_zy", suffix,
+        *(t.data_ptr() for t in (Kinv, A, g, l, u, rho, x0, z0, y0,
+                                 Hs, lo, uo, d, e)),
+        *(t.data_ptr() for t in outs),
+        B, n, m, int(iters), alpha, 1.0 - alpha, w0, 1.0 - w0,
+        torch.cuda.current_stream(A.device).cuda_stream,
+    )
+    LAUNCHES += 1
+    return outs

@@ -1,0 +1,164 @@
+"""Builds `csrc/*.cu` into one shared library at first use and loads it.
+
+The kernels have a plain C interface, so the build is `nvcc` by hand (one
+compile per source, all started together, then one link) and the binding is
+`ctypes`: seconds, where a build against PyTorch's headers takes minutes.
+The library goes into `build/` beside the package, named after a hash of
+the sources and flags, so an unchanged tree builds once.  A failed build raises with the compiler's
+output; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+SOURCES = ("prepare.cu", "admm_zy.cu", "polish.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib = None
+build_seconds = None   # wall time of the build this process ran, if any
+build_log = ""         # what nvcc printed (register / shared-memory use)
+
+
+def build_dir() -> str:
+    return os.path.join(os.path.dirname(_PKG_DIR), "build", "qwbc_torch_kernels")
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of this package are compiled at "
+        "first use and need the CUDA toolkit (looked on PATH and under "
+        "$CUDA_HOME, /usr/local/cuda)"
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode())
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(lib_path: str) -> None:
+    global build_seconds, build_log
+    nvcc = _nvcc()
+    out_dir = os.path.dirname(lib_path)
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name.replace(".cu", ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c",
+                   os.path.join(CSRC_DIR, name), "-o", obj]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        objs, logs, failed = [], [], []
+        for name, obj, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {name}\n{out}")
+            if p.returncode != 0:
+                failed.append(name)
+            objs.append(obj)
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp_lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             "-o", tmp_lib, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib_path)   # atomic: a concurrent build wins or loses whole
+    build_seconds = time.perf_counter() - t0
+
+
+_PTR = ctypes.c_void_p
+
+
+def _declare(lib) -> None:
+    i, f, d = ctypes.c_int, ctypes.c_float, ctypes.c_double
+    for suffix, real in (("f32", f), ("f64", d)):
+        fn = getattr(lib, f"qwbc_prepare_{suffix}")
+        fn.argtypes = [_PTR] * 19 + [i, i, i, i, real, real, _PTR]
+        fn.restype = i
+        fn = getattr(lib, f"qwbc_admm_zy_{suffix}")
+        fn.argtypes = [_PTR] * 20 + [i, i, i, i, real, real, real, real, _PTR]
+        fn.restype = i
+        fn = getattr(lib, f"qwbc_polish_{suffix}")
+        fn.argtypes = [_PTR] * 17 + [i, i, i, i, i, i, real, _PTR]
+        fn.restype = i
+    lib.qwbc_error_string.argtypes = [i]
+    lib.qwbc_error_string.restype = ctypes.c_char_p
+
+
+def lib():
+    """The loaded kernel library, built first if this tree's build is missing."""
+    global _lib
+    if _lib is None:
+        path = os.path.join(build_dir(), f"libqwbc_kernels_{_source_hash()}.so")
+        if not os.path.exists(path):
+            _build(path)
+        loaded = ctypes.CDLL(path)
+        _declare(loaded)
+        _lib = loaded
+    return _lib
+
+
+def launch(name: str, dtype_suffix: str, *args) -> None:
+    """Call one C launcher; raise if the launch was refused.
+
+    The launch is asynchronous on PyTorch's current stream.  Temporaries
+    the wrapper passes (clipped bounds) may be freed by Python before the
+    kernel runs: PyTorch's allocator hands such memory only to later work
+    on the same stream, so the kernel still reads what it was given."""
+    l = lib()
+    err = getattr(l, f"qwbc_{name}_{dtype_suffix}")(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"CUDA launch of {name}_{dtype_suffix} failed: "
+            f"{l.qwbc_error_string(err).decode()} (code {err})"
+        )
+
+
+def check_inputs(ref, named_shapes: dict) -> str:
+    """Raise unless every tensor is a contiguous CUDA tensor of ref's device
+    and dtype with the stated shape; returns the launcher's dtype suffix."""
+    import torch
+
+    if ref.dtype == torch.float32:
+        suffix = "f32"
+    elif ref.dtype == torch.float64:
+        suffix = "f64"
+    else:
+        raise TypeError(f"kernels take float32 or float64, got {ref.dtype}")
+    for name, (t, shape) in named_shapes.items():
+        if t.device != ref.device or t.device.type != "cuda":
+            raise ValueError(f"{name}: on {t.device}, expected {ref.device}")
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{name}: {t.dtype}, expected {ref.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+    return suffix

@@ -1,0 +1,150 @@
+"""The port stands alone: it imports torch, numpy and the standard library,
+never jax and never the JAX package; and its kernel wrappers take the plain
+version only for CPU tensors, with no fallback around the launch."""
+import ast
+import os
+
+import pytest
+import torch
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+PORT = os.path.join(ROOT, "quadrupedwholebodycontroller_tpu_torch")
+JAX_PKG = "quadrupedwholebodycontroller_tpu"
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(PORT):
+        out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_and_no_jax_package_import(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax"), (path, mod)
+        assert top != JAX_PKG, (path, mod)
+
+
+def test_port_has_the_expected_modules():
+    rel = {os.path.relpath(p, PORT) for p in _port_files()}
+    for want in ("config.py", "convert.py", "control/wbc.py", "ops/qp.py",
+                 "ops/linalg.py", "ops/compensated.py", "ops/kinematics.py",
+                 "ops/dynamics.py", "ops/centroidal.py", "ops/spatial.py",
+                 "ops/kernels/build.py", "ops/kernels/prepare.py",
+                 "ops/kernels/admm_zy.py", "ops/kernels/polish.py",
+                 "models/anymal.py", "models/robot_model.py"):
+        assert want in rel, want
+    for src in ("common.cuh", "prepare.cu", "admm_zy.cu", "polish.cu"):
+        assert os.path.exists(os.path.join(PORT, "csrc", src)), src
+    assert os.path.exists(os.path.join(PORT, "models", "data", "anymal_d.json"))
+
+
+KERNEL_MODULES = ("prepare", "admm_zy", "polish")
+
+
+@pytest.mark.parametrize("name", KERNEL_MODULES)
+def test_wrappers_have_no_try_around_the_launch(name):
+    """A CUDA tensor launches the kernel or raises: no `try` in the wrapper
+    modules, so nothing can fall back to the plain version."""
+    path = os.path.join(PORT, "ops", "kernels", f"{name}.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("name", KERNEL_MODULES)
+def test_kernel_sources_are_hand_written_cuda(name):
+    """The .cu files call no library GEMM and name the kernel they replace."""
+    with open(os.path.join(PORT, "csrc", f"{name}.cu")) as f:
+        src = f.read()
+    for banned in ("cublas", "cusolver", "cutlass", "torch/extension.h"):
+        assert banned not in src.lower(), banned
+    assert "__global__" in src and "Replaces the TPU kernel" in src
+    assert "Bound on this card" in src
+
+
+def _cpu_problem(B=3, n=6, m=8, k=2, start=2, dtype=torch.float64):
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g, dtype=dtype)
+    L = r(B, n, n)
+    H = L @ L.transpose(-1, -2) + n * torch.eye(n, dtype=dtype)
+    A = r(B, m, n)
+    l, u = -torch.ones(B, m, dtype=dtype), torch.ones(B, m, dtype=dtype)
+    return H, A, r(B, n), l, u, r(B, n), r(B, m), r(B, m)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    from quadrupedwholebodycontroller_tpu_torch.ops import kernels
+    from quadrupedwholebodycontroller_tpu_torch.ops.kernels import admm_zy, polish, prepare
+
+    kernels.reset_counts()
+    H, A, g, l, u, wx, wz, wy = _cpu_problem()
+    B, m, n = A.shape
+    out = prepare.prepare_scaled(H, A, g, l, u, wx, wz, wy, sweeps=2, rho0=0.5,
+                                 rho_eq_scale=1000.0)
+    sH, sA, sg, sl, su, rho, wxs, wzs, wys, d, e = out
+    Kinv = torch.linalg.inv(sH + (sA.transpose(-1, -2) * rho[:, None, :]) @ sA)
+    admm_zy.admm_zy_iterations_res(Kinv, sA, sg, sl, su, rho, wxs, wzs, wys, sH,
+                                   l, u, d, e, iters=3, alpha=1.6)
+    diag = torch.ones(B, n, dtype=H.dtype)
+    diag[:, 2:4] = 0.0
+    blk = torch.eye(2, dtype=H.dtype).expand(B, 2, 2).contiguous()
+    da = torch.ones(B, m, dtype=H.dtype)
+    Sinv = torch.eye(m, dtype=H.dtype).expand(B, m, m).contiguous()
+    polish.polish_solve((diag, blk, 2), (diag, blk, 2), Sinv, A, da, g, u, l, u,
+                        refine=1, reg=1e-9)
+    assert kernels.plain_counts() == {
+        "prepare_scaled": 1, "admm_zy_iterations_res": 1, "polish_solve_compact": 1}
+    assert kernels.launch_counts() == {
+        "prepare_scaled": 0, "admm_zy_iterations_res": 0, "polish_solve_compact": 0}
+
+
+def test_unported_options_raise():
+    from quadrupedwholebodycontroller_tpu_torch.config import ControllerParams, QPSolverParams
+    from quadrupedwholebodycontroller_tpu_torch.control import wbc
+    from quadrupedwholebodycontroller_tpu_torch.models import anymal_d_model
+    from quadrupedwholebodycontroller_tpu_torch.ops import qp
+
+    B, dt = 2, torch.float64
+    model = anymal_d_model(dt, "cpu")
+    carry = wbc.init_carry(B, dt, "cpu")
+    ref = wbc.Reference.standing(ControllerParams(), B, dt, "cpu")
+    obs = wbc.RobotObservation(
+        base_R=torch.eye(3, dtype=dt).expand(B, 3, 3), base_p=torch.zeros(B, 3, dtype=dt),
+        base_vel=torch.zeros(B, 6, dtype=dt), q=torch.zeros(B, 12, dtype=dt),
+        qd=torch.zeros(B, 12, dtype=dt))
+    cache = qp.make_cache(B, 42, 70, QPSolverParams(), dt, "cpu")
+    step = lambda qpp=QPSolverParams(), cp=ControllerParams(), **kw: wbc.wbc_step_batched(
+        model, cp, qpp, obs, ref, carry, True, kw.pop("qp_backend", "kernel"),
+        kw.pop("qp_cache", cache), False, **kw)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        step(setup_backend="kernel")
+    for bad in (dict(sigma=1e-6), dict(comp_final_refine=1), dict(drop_warm_iters=4),
+                dict(ns_warm_iters_polish=1), dict(cond_hoist=1)):
+        with pytest.raises(NotImplementedError):
+            step(QPSolverParams(**bad))
+    with pytest.raises(NotImplementedError):
+        step(cp=ControllerParams(exact_derivatives=True))
+    with pytest.raises(NotImplementedError):
+        step(qp_backend="xla")
+    with pytest.raises(NotImplementedError):
+        step(qp_cache=None)
+
+
+def test_tf32_matmul_is_off():
+    import quadrupedwholebodycontroller_tpu_torch.ops.linalg  # noqa: F401  (checks at import)
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -1,0 +1,282 @@
+"""The slice as a whole: the port's `wbc_step_batched` against the JAX step
+`wbc_step_batched(..., "pallas", cache, valid, setup_backend="xla")` with
+`QPSolverParams(solve_layout="major")` (so the JAX cache is batch-major and
+the Pallas kernels run in interpret mode on the CPU), B = 4 perturbed
+scenarios over recorded steps 36..43, which span the contact switch
+published at step 40.  The first step runs with `cache_valid=False`; carry
+and cache are threaded on each side independently, the port's from its own
+constructors, and one JAX carry/cache is also carried ACROSS through
+`convert` mid-replay.
+
+Tolerances:
+  * float64: tau and qp_x 1e-6 absolute (the two sides run the same
+    algorithm; they differ by summation order, ~1e-11 measured, and 1e-6
+    leaves room for a refinement pass converging differently);
+  * float32: tau within 1e-3 N.m wherever both sides certify the step
+    (relative KKT < 1e-5), and within 0.05 N.m elsewhere: an uncertified
+    step keeps the ADMM iterate, whose float32 rounding differences are
+    amplified by the solve (measured <= 7e-3 N.m); relative KKT <= 3e-3 on
+    both sides at every step.
+
+One more float64 case shrinks the compaction caps (cold_batch=2,
+drop_batch=2, rescue_batch=2, rescue_round2_batch=1, rescue_threshold=1e-7)
+and staggers the switch across scenarios, so the compacted cold fix, the
+compacted drop round, the compacted rescue and its compacted round 2 all
+execute at B = 4; the defaults never enter them at this batch size."""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quadrupedwholebodycontroller_tpu.config import ControllerParams as JaxControllerParams
+from quadrupedwholebodycontroller_tpu.config import QPSolverParams as JaxQPSolverParams
+from quadrupedwholebodycontroller_tpu.control import wbc as jwbc
+from quadrupedwholebodycontroller_tpu.models import anymal_d_model as jax_model
+from quadrupedwholebodycontroller_tpu.ops import qp as jqp
+from quadrupedwholebodycontroller_tpu_torch import convert
+from quadrupedwholebodycontroller_tpu_torch.config import ControllerParams, QPSolverParams
+from quadrupedwholebodycontroller_tpu_torch.control import wbc
+from quadrupedwholebodycontroller_tpu_torch.models import anymal_d_model
+from quadrupedwholebodycontroller_tpu_torch.ops import linalg, qp
+from quadrupedwholebodycontroller_tpu_torch.ops.kernels import admm_zy, polish
+from tests._torch_port_util import ROOT, load_walk, make_offsets, step_arrays
+
+B = 4
+STEPS = tuple(range(36, 44))
+COMPACT = dict(cold_batch=2, drop_batch=2, rescue_batch=2, rescue_round2_batch=1,
+               rescue_threshold=1e-7)
+CASES = {
+    "f64_defaults": ("float64", {}, False),
+    "f32_defaults": ("float32", {}, False),
+    "f64_compact": ("float64", COMPACT, True),
+}
+
+
+def _new_mask(t, new, stagger):
+    """Per-scenario ref_is_new.  Staggered: scenario 0 takes the switch at
+    step 40 (one cold scenario: the compacted cold fix), the other three at
+    step 41 (three cold > cold_batch=2: the full cold fallback)."""
+    m = np.full((B,), new)
+    if stagger and t == 40:
+        m = np.array([True, False, False, False])
+    if stagger and t == 41:
+        m = np.array([False, True, True, True])
+    return m
+
+
+_JITS = {}
+
+
+def _jax_step(dtype, overrides):
+    """The JAX step for one dtype and parameter set, jitted once per module
+    run: (QPSolverParams, step(obs, ref, carry, new, cache, valid))."""
+    key = (dtype, tuple(sorted(overrides.items())))
+    if key not in _JITS:
+        jdt = jnp.float64 if dtype == "float64" else jnp.float32
+        jm, jcp = jax_model(dtype=jdt), JaxControllerParams()
+        jq = JaxQPSolverParams(solve_layout="major", **overrides)
+        _JITS[key] = (jq, jax.jit(lambda o, r, c, new, cache, valid: jwbc.wbc_step_batched(
+            jm, jcp, jq, o, r, c, new, "pallas", cache, valid, setup_backend="xla")))
+    return _JITS[key]
+
+
+def _run_case(name):
+    torch.set_num_threads(1)
+    dtype, overrides, stagger = CASES[name]
+    jdt = jnp.float64 if dtype == "float64" else jnp.float32
+    tdt = torch.float64 if dtype == "float64" else torch.float32
+    traj = load_walk()
+    offsets = make_offsets(np.random.default_rng(41), B)
+    tm, tcp, tq = anymal_d_model(tdt, "cpu"), ControllerParams(), QPSolverParams(**overrides)
+    jq, jstep = _jax_step(dtype, overrides)
+    jc = jax.tree.map(lambda x: jnp.stack([x] * B), jwbc.init_carry(jdt))
+    jcache = jqp.make_cache(B, 42, 70, jq, jdt)
+    tc = wbc.init_carry(B, tdt, "cpu")
+    tcache = qp.make_cache(B, 42, 70, tq, tdt, "cpu")
+
+    # record the sub-batch sizes the port's solver stages see
+    seen = {"ns_inverse": set(), "polish": set(), "admm": set()}
+    orig = (qp.ns_inverse, polish.polish_solve, admm_zy.admm_zy_iterations_res)
+
+    def ns_spy(A, *a, **k):
+        seen["ns_inverse"].add(tuple(A.shape))
+        return orig[0](A, *a, **k)
+
+    def pol_spy(H, Hinv, Sinv, A, *a, **k):
+        seen["polish"].add(A.shape[0])
+        return orig[1](H, Hinv, Sinv, A, *a, **k)
+
+    def admm_spy(Kinv, A, *a, **k):
+        seen["admm"].add((A.shape[0], k["iters"]))
+        return orig[2](Kinv, A, *a, **k)
+
+    qp.ns_inverse, polish.polish_solve, admm_zy.admm_zy_iterations_res = ns_spy, pol_spy, admm_spy
+    rows, crossed = [], None
+    try:
+        valid = False
+        for t in STEPS:
+            obs, ref, new = step_arrays(traj, t, B, offsets)
+            mask = _new_mask(t, new, stagger)
+            jo = jwbc.RobotObservation(**{k: jnp.asarray(v, jdt) for k, v in obs.items()})
+            jr = jwbc.Reference(**{k: jnp.asarray(v, jdt) for k, v in ref.items()})
+            to = convert.obs_from_numpy(obs, tdt, "cpu")
+            tr = convert.ref_from_numpy(ref, tdt, "cpu")
+            if t == 42:
+                # carry the JAX side's mid-replay state across and take the
+                # same step from it
+                jcd = {k: np.asarray(getattr(jc, k)) for k in jc._fields if k != "qp_warm"}
+                jcd["qp_warm"] = {k: np.asarray(getattr(jc.qp_warm, k)) for k in "xzy"}
+                xc = convert.carry_from_numpy(jcd, tdt, "cpu")
+                xcache = convert.cache_from_numpy(
+                    {k: np.asarray(getattr(jcache, k)) for k in jcache._fields}, tdt, "cpu")
+                xout, _, _ = wbc.wbc_step_batched(
+                    tm, tcp, tq, to, tr, xc, torch.as_tensor(mask), "kernel", xcache, True)
+                crossed = xout
+            jout, jc, jcache = jstep(jo, jr, jc, jnp.asarray(mask), jcache, valid)
+            tout, tc, tcache = wbc.wbc_step_batched(
+                tm, tcp, tq, to, tr, tc, torch.as_tensor(mask), "kernel", tcache, valid)
+            valid = True
+            rows.append((t, jax.tree.map(np.asarray, jout), convert.to_numpy(tout)))
+            if t == 42:
+                crossed = (convert.to_numpy(crossed), rows[-1][1])
+    finally:
+        qp.ns_inverse, polish.polish_solve, admm_zy.admm_zy_iterations_res = orig
+    final = (jax.tree.map(np.asarray, (jc, jcache)), convert.to_numpy((tc, tcache)))
+    return dict(rows=rows, seen=seen, crossed=crossed, final=final, dtype=dtype)
+
+
+@pytest.fixture(scope="module")
+def results():
+    return {}
+
+
+def _case(results, name):
+    if name not in results:
+        results[name] = _run_case(name)
+    return results[name]
+
+
+def _d(a, b):
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+@pytest.mark.parametrize("name", ["f64_defaults", "f64_compact"])
+def test_float64_step_matches_jax(results, name):
+    r = _case(results, name)
+    for t, jout, tout in r["rows"]:
+        assert _d(jout.tau, tout.tau) <= 1e-6, (t, _d(jout.tau, tout.tau))
+        assert _d(jout.qp_x, tout.qp_x) <= 1e-6, (t, _d(jout.qp_x, tout.qp_x))
+        assert _d(jout.grf, tout.grf) <= 1e-6
+        assert _d(jout.qp_info.kkt_residual, tout.qp_info.kkt_residual) <= 1e-6
+        assert np.array_equal(jout.qp_info.polished, tout.qp_info.polished), t
+        for f in ("com_pos", "com_pose", "foot_pos"):
+            assert _d(getattr(jout, f), getattr(tout, f)) <= 1e-9, (t, f)
+
+
+@pytest.mark.parametrize("name", ["f64_defaults", "f64_compact"])
+def test_float64_carry_and_cache_match_jax_after_the_window(results, name):
+    (jc, jcache), (tc, tcache) = _case(results, name)["final"]
+    for f in jc._fields:
+        if f == "qp_warm":
+            for k in "xzy":
+                assert _d(getattr(jc.qp_warm, k), getattr(tc.qp_warm, k)) <= 1e-6, k
+        else:
+            assert _d(np.asarray(getattr(jc, f), np.float64),
+                      np.asarray(getattr(tc, f), np.float64)) <= 1e-8, f
+    # K^-1 and the carried Schur inverse: entries up to ~1e3, NS-converged
+    assert _d(jcache.kinv, tcache.kinv) <= 1e-6
+    assert _d(jcache.sinv, tcache.sinv) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["f64_defaults", "f64_compact", "f32_defaults"])
+def test_state_carried_across_gives_the_jax_step(results, name):
+    """A JAX carry and cache, passed through numpy and `convert` mid-replay
+    (step 42, inside the held switch window), give the JAX step's output."""
+    r = _case(results, name)
+    xout, jout = r["crossed"]
+    tol = 1e-6 if r["dtype"] == "float64" else 5e-2
+    assert _d(xout.tau, jout.tau) <= tol
+    assert _d(xout.qp_info.kkt_residual, jout.qp_info.kkt_residual) <= (
+        1e-6 if r["dtype"] == "float64" else 3e-3)
+
+
+def test_float32_step_matches_jax(results):
+    r = _case(results, "f32_defaults")
+    for t, jout, tout in r["rows"]:
+        jk, tk = jout.qp_info.kkt_residual, tout.qp_info.kkt_residual
+        assert jk.max() <= 3e-3 and tk.max() <= 3e-3, (t, jk.max(), tk.max())
+        err = np.abs(jout.tau.astype(np.float64) - tout.tau.astype(np.float64)).max(axis=1)
+        cert = (jk < 1e-5) & (tk < 1e-5)
+        assert (err[cert] <= 1e-3).all(), (t, err)
+        assert (err <= 5e-2).all(), (t, err)
+    # the window has certified steps on both sides (before the switch)
+    assert any(((j.qp_info.kkt_residual < 1e-5) & (o.qp_info.kkt_residual < 1e-5)).any()
+               for _, j, o in r["rows"])
+
+
+def test_defaults_never_enter_the_compacted_branches_at_b4(results):
+    seen = _case(results, "f64_defaults")["seen"]
+    assert seen["polish"] == {B}
+    assert {s[0] for s in seen["ns_inverse"]} == {B}
+    assert (B, 160) in seen["admm"]          # cold-start extra on the first step
+
+
+def test_compact_case_executes_every_compacted_branch(results):
+    seen = _case(results, "f64_compact")["seen"]
+    # compacted cold fix: K^-1 and the Schur inverse of the top-2 sub-batch
+    assert (2, 42, 42) in seen["ns_inverse"] and (2, 70, 70) in seen["ns_inverse"]
+    # full cold fallback when more scenarios switch than cold_batch
+    assert (B, 42, 42) in seen["ns_inverse"] and (B, 70, 70) in seen["ns_inverse"]
+    # compacted drop round / compacted rescue (2) and the rescue's round 2 (1)
+    assert {B, 2, 1} <= seen["polish"]
+    assert (2, 40) in seen["admm"]           # the rescue's ADMM continuation
+
+
+def test_default_threshold_torque_gap_is_the_references_own():
+    """Under the shipped `rescue_threshold = 3e-3` the float32 kernel path
+    leaves the float64 torque record `data/torque_cpu64.npz` at step 4 of
+    the walk (the first step of the gait): the polish candidate is rejected,
+    the ADMM iterate is kept at relative KKT ~1e-3, under the rescue
+    threshold.  This holds the claim that the gap is the reference's own and
+    not the port's: the JAX step (Pallas kernels in interpret mode, float32)
+    shows it too, the port follows the JAX torques, and both hold the
+    1e-3 N.m bar on the standing steps 0..3, which the solver certifies."""
+    torch.set_num_threads(1)
+    traj = load_walk()
+    record = np.load(os.path.join(ROOT, "data", "torque_cpu64.npz"))["tau"]
+    jq, jstep = _jax_step("float32", {})
+    jdt, tdt = jnp.float32, torch.float32
+    tm, tcp, tq = anymal_d_model(tdt, "cpu"), ControllerParams(), QPSolverParams()
+    jc = jax.tree.map(lambda x: jnp.stack([x] * B), jwbc.init_carry(jdt))
+    jcache = jqp.make_cache(B, 42, 70, jq, jdt)
+    tc = wbc.init_carry(B, tdt, "cpu")
+    tcache = qp.make_cache(B, 42, 70, tq, tdt, "cpu")
+    valid = False
+    for t in range(6):
+        obs, ref, new = step_arrays(traj, t, B)
+        mask = np.full((B,), new)
+        jo = jwbc.RobotObservation(**{k: jnp.asarray(v, jdt) for k, v in obs.items()})
+        jr = jwbc.Reference(**{k: jnp.asarray(v, jdt) for k, v in ref.items()})
+        jout, jc, jcache = jstep(jo, jr, jc, jnp.asarray(mask), jcache, valid)
+        tout, tc, tcache = wbc.wbc_step_batched(
+            tm, tcp, tq, convert.obs_from_numpy(obs, tdt, "cpu"),
+            convert.ref_from_numpy(ref, tdt, "cpu"), tc, torch.as_tensor(mask),
+            "kernel", tcache, valid)
+        valid = True
+        jtau = np.asarray(jout.tau[0], np.float64)
+        ttau = tout.tau[0].double().numpy()
+        jerr, terr = np.abs(jtau - record[t]).max(), np.abs(ttau - record[t]).max()
+        jk = float(jout.qp_info.kkt_residual[0])
+        tk = float(tout.qp_info.kkt_residual[0])
+        assert jk <= 3e-3 and tk <= 3e-3, (t, jk, tk)
+        if t < 4:
+            assert jk < 1e-5 and tk < 1e-5, (t, jk, tk)
+            assert jerr <= 1e-3 and terr <= 1e-3, (t, jerr, terr)
+        if t == 4:
+            assert jk > 1e-5 and tk > 1e-5, (jk, tk)      # uncertified on both sides
+            assert jerr > 0.1, jerr                        # measured 0.235 N.m
+            assert abs(terr - jerr) <= 2e-2, (terr, jerr)  # measured 0.2351 both
+            assert np.abs(ttau - jtau).max() <= 5e-2       # the f32 bound above
