@@ -7,14 +7,18 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  It
 
   1. builds the CUDA kernels from `quadrupedwholebodycontroller_tpu_torch/csrc`,
   2. holds each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (B = 4096, n = 42, m = 70) on QPs assembled from a
-     recorded walking step, each output to its own tolerance, in float32
-     and float64, plus a ragged B = 37,
-  3. drives the main path: the batched 400 Hz control cycle replaying the
-     recorded 200-step walk at B = 4096 in float32 through
-     `control.wbc.wbc_step_batched`, and checks the launch counters,
-  4. replays the unperturbed walk at B = 8 against the float64 torque record
-     `data/torque_cpu64.npz`.
+     main path's shapes (B = 4096, n = 42, m = 70) on inputs from a recorded
+     walking step, each output to its own tolerance, in float32 and
+     float64, plus a ragged B = 37,
+  3. drives the two paths of the batched 400 Hz control cycle
+     (`control.wbc.wbc_step_batched`, B = 4096, float32) over the recorded
+     walk, each with the launch counters zeroed before and read after: the
+     main path (`setup_backend="kernel"`: fused setup kernel -> ADMM ->
+     polish) over all 200 steps, and the earlier path (`"torch"`: tensor-code
+     setup -> prepare kernel -> ADMM -> polish) over steps 0..69, which hold
+     a contact switch; then holds the two paths' torques against each other,
+  4. replays the unperturbed walk at B = 8 through the main path against the
+     float64 torque record `data/torque_cpu64.npz`.
 
 Every line it prints is one JSON object; the last is
 `{"ok": true, "device": {...}}`.  Any failed check raises.
@@ -44,6 +48,7 @@ from quadrupedwholebodycontroller_tpu_torch.config import (  # noqa: E402
 )
 from quadrupedwholebodycontroller_tpu_torch.control import wbc  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.models import anymal_d_model  # noqa: E402
+from quadrupedwholebodycontroller_tpu_torch.models.robot_model import RobotModel  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops import kernels, qp  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (  # noqa: E402
     admm_zy,
@@ -51,6 +56,7 @@ from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (  # noqa: E402
     polish,
     prepare,
 )
+from quadrupedwholebodycontroller_tpu_torch.ops.kernels import setup as setup_k  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops.linalg import ns_inverse  # noqa: E402
 
 DEV = "cuda"
@@ -92,14 +98,57 @@ TORQUE_F64 = np.load(os.path.join(ROOT, "data", "torque_cpu64.npz"))["tau"]
 # wrote zeros, or a wrong residual, fails there.
 # float64: 1e-9 relative everywhere, plus 1e-10 absolute (pr, du, sv are
 # relative quantities, ~1e-12 on a converged float64 iterate).
+#
+# The setup kernel (both variants) against `setup_batched_plain`, which is
+# another algebra (dense 18 x 18 products against the kernel's blocks), on a
+# warmed carry with a contact switch in part of the batch (SETUP_TOL_F32).
+# Each float32 bound is about 20x what an H100 measured on these inputs, in
+# share of the output's scale unless it says "elem":
+#   * A, the new T and J, the kinematic outputs: sums of a few dozen products
+#     of O(1) terms (measured 2e-7 .. 4e-7); H: 1 and 1000 on its diagonal
+#     set the scale (5e-10);
+#   * the finite-difference outputs divide a float32 rounding by dt = 1/400
+#     and map it through T^-1: tdot_inv 4e-3 (measured 2e-4);
+#   * h_c, g, l, u are cancellations of large terms (Coriolis and gravity
+#     against M d(T^-1)/dt u; gains of 6000 against pose errors): a bound in
+#     share of the scale (measured 4e-6, 2e-6, 4e-7), and the float64 guard
+#     on top, as for the solver's residuals: there the kernel measured 0.9x
+#     to 1.2x as far from the float64 plain version as the float32 plain one;
+#   * the scalings d, e and the scaled warm start are products and square
+#     roots of single entries; masked friction rows scale to e = 1e16, so a
+#     share of the scale would hold nothing: held elementwise, 1e-5
+#     (measured 6e-7);
+#   * rho, the contacts and both flags are exact (tolerance 0).
 PREP_OUT = "sH sA sg sl su rho wxs wzs wys d e".split()
 ADMM_OUT = "x z y pr du sv".split()
 POLISH_OUT = "x y z pr du sv".split()
+SETUP_RESULT = "H g A l u h_c Mc_jj Jc_st_j com current_pose foot_pos".split()
+SETUP_CARRY = ("old_T old_J_st old_J_sw tdot_inv integral_error prev_contacts "
+               "switch_flag deriv_valid").split()
+SETUP_OUT = SETUP_RESULT + SETUP_CARRY + PREP_OUT   # the plain variant: no PREP_OUT
+K3 = "setup_batched"
 OUTPUTS = {"prepare_scaled": PREP_OUT, "admm_zy_iterations_res": ADMM_OUT,
-           "polish_solve_compact": POLISH_OUT}
+           "polish_solve_compact": POLISH_OUT, K3: SETUP_OUT}
 FLOOR = None     # at the rounding floor: float64 guard + resolving case
+EXACT = (0.0, 0.0)
+ELEM = "elem"    # (ELEM, rtol): |kernel - plain| <= rtol |plain| on every entry
+SETUP_TOL_F32 = {
+    "H": (1e-8, 0.0), "A": (4e-6, 0.0), "g": (4e-5, 0.0), "l": (1e-5, 0.0),
+    "u": (1e-5, 0.0), "h_c": (1e-4, 0.0), "Mc_jj": (1e-5, 0.0),
+    "Jc_st_j": (1e-5, 0.0), "com": (1e-5, 0.0), "current_pose": (1e-5, 0.0),
+    "foot_pos": (1e-5, 0.0), "old_T": (4e-6, 0.0), "old_J_st": (4e-6, 0.0),
+    "old_J_sw": (4e-6, 0.0), "tdot_inv": (4e-3, 0.0),
+    "integral_error": (4e-5, 0.0), "prev_contacts": EXACT, "switch_flag": EXACT,
+    "deriv_valid": EXACT,
+    "sH": (1e-5, 0.0), "sA": (2e-5, 0.0), "sg": (4e-5, 0.0), "sl": (1e-5, 0.0),
+    "su": (1e-5, 0.0), "rho": EXACT, "wxs": (ELEM, 1e-5), "wzs": (ELEM, 1e-5),
+    "wys": (ELEM, 1e-5), "d": (ELEM, 1e-5), "e": (ELEM, 1e-5),
+}
+SETUP_GUARDED = ("h_c", "g", "l", "u")   # cancellations: also the float64 guard
 TOL_F32 = {
-    ("prepare_scaled", "main"): {o: (1e-5, 0.0) for o in PREP_OUT},
+    (K3, "main"): SETUP_TOL_F32,
+    (K3, "plain_variant"): SETUP_TOL_F32,
+    ("prepare_scaled", "main"): {o: (ELEM, 1e-5) for o in PREP_OUT},
     ("admm_zy_iterations_res", "main"): {
         "x": (1e-4, 0.0), "z": (1e-4, 0.0), "y": (5e-3, 0.0),
         "pr": FLOOR, "du": FLOOR, "sv": FLOOR},
@@ -120,11 +169,13 @@ REPLACES = {
     "prepare_scaled": "quadrupedwholebodycontroller_tpu/ops/pallas/prepare_kernel.py:74",
     "admm_zy_iterations_res": "quadrupedwholebodycontroller_tpu/ops/pallas/qp_kernel.py:243",
     "polish_solve_compact": "quadrupedwholebodycontroller_tpu/ops/pallas/polish_kernel.py:276",
+    K3: "quadrupedwholebodycontroller_tpu/ops/pallas/setup_kernel.py:1193",
 }
 SOURCES = {
     "prepare_scaled": "quadrupedwholebodycontroller_tpu_torch/csrc/prepare.cu",
     "admm_zy_iterations_res": "quadrupedwholebodycontroller_tpu_torch/csrc/admm_zy.cu",
     "polish_solve_compact": "quadrupedwholebodycontroller_tpu_torch/csrc/polish.cu",
+    K3: "quadrupedwholebodycontroller_tpu_torch/csrc/setup.cu",
 }
 
 
@@ -200,6 +251,73 @@ def kernel_problem(batch: int, dtype, rng):
     ], stats
 
 
+def setup_flat(res):
+    """A setup result (dict) as a tuple in the order of SETUP_OUT; flags as
+    numbers, so every output goes through the same comparison."""
+    cu = res["carry_updates"]
+    outs = [res[k] for k in SETUP_RESULT] + [cu[k] for k in SETUP_CARRY]
+    outs += list(res["prepared"] or ())
+    return tuple(o.to(res["A"].dtype) for o in outs)
+
+
+def setup_problem(batch: int, dtype, rng):
+    """Inputs of the setup kernel at recorded step 60 (one leg in swing) on a
+    WARMED carry: two steps of the tensor-code setup before it, so the old T
+    and J, the stale d(T^-1)/dt and the integral are those of a running
+    controller.  A quarter of the batch gets another contact pattern (a
+    contact switch where the reference is new), `ref_is_new` is False on a
+    third, `deriv_valid` False on a fifth, and the warm start is non-zero."""
+    model = anymal_d_model(dtype, DEV)
+    cp, qpp = ControllerParams(), QPSolverParams()
+    off = replay.make_offsets(batch, dtype, rng, DEV)
+    carry = wbc.init_carry(batch, dtype, DEV)
+    every = torch.ones(batch, dtype=torch.bool, device=DEV)
+    for t in (58, 59):
+        obs, ref, _ = replay.step_inputs(TRAJ, t, batch, dtype, off, DEV)
+        s = wbc.wbc_setup(model, cp, obs, ref, carry, every)
+        carry = wbc.WBCCarry(qp_warm=carry.qp_warm, **s.carry_updates)
+    obs, ref, _ = replay.step_inputs(TRAJ, 60, batch, dtype, off, DEV)
+    idx = torch.arange(batch, device=DEV)
+    contacts = ref.contacts.clone()
+    flip = idx % 4 == 1
+    contacts[flip, 0] = 1.0 - contacts[flip, 0]
+    ref = ref._replace(contacts=contacts)
+    ref_is_new = idx % 3 != 0
+    rnd = lambda k: torch.as_tensor(0.1 * rng.standard_normal((batch, k)), device=DEV).to(dtype)
+    carry = carry._replace(deriv_valid=idx % 5 != 2,
+                           qp_warm=qp.QPState(x=rnd(N), z=rnd(M), y=rnd(M)))
+    args = (model, cp, obs, ref, carry, ref_is_new)
+    want = setup_k.setup_batched_plain(*args, qp_params=qpp)
+    sw = want["carry_updates"]["switch_flag"]
+    stats = {
+        "switched": int(sw.sum()), "ref_not_new": int((~ref_is_new).sum()),
+        "fd_gate_open": int((~sw & carry.deriv_valid).sum()),
+        "swing_legs": int((want["carry_updates"]["prev_contacts"] == 0).sum()),
+        "max_abs_old_tdot_inv": float(carry.tdot_inv.abs().max()),
+        "max_abs_new_tdot_inv": float(want["carry_updates"]["tdot_inv"].abs().max()),
+    }
+    fn = lambda *a, **k: setup_flat(setup_k.setup_batched(*a, **k))
+    plain = lambda *a, **k: setup_flat(setup_k.setup_batched_plain(*a, **k))
+    return [(K3, "main", fn, plain, args, dict(qp_params=qpp)),
+            (K3, "plain_variant", fn, plain, args, dict(qp_params=None))], stats
+
+
+def setup_bytes(args, got) -> int:
+    """Bytes the setup kernel must move: every input read once (of the
+    carried 18 x 18 T and d(T^-1)/dt only the top 6 rows are read; the model
+    table is shared by all scenarios), every output written once."""
+    _, _, obs, ref, carry, ref_is_new = args
+    read = [*obs, *ref, carry.old_T[:, :6], carry.tdot_inv[:, :6], carry.old_J_st,
+            carry.old_J_sw, carry.integral_error, carry.prev_contacts,
+            carry.switch_flag, carry.deriv_valid, ref_is_new]
+    if len(got) > len(SETUP_RESULT) + len(SETUP_CARRY):
+        read += list(carry.qp_warm)
+    size = lambda t: t.numel() * t.element_size()
+    n_core = len(SETUP_RESULT) + len(SETUP_CARRY)
+    written = list(got[:n_core - 2]) + list(got[n_core:])   # the two flags: a byte each
+    return sum(size(t) for t in read) + sum(size(t) for t in written) + 2 * got[0].shape[0]
+
+
 def flat_tensors(args):
     for a in args:
         if isinstance(a, tuple):
@@ -209,9 +327,15 @@ def flat_tensors(args):
 
 
 def _to_double(a):
+    if isinstance(a, RobotModel):
+        return a.to(dtype=torch.float64)     # the same rounded constants
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(_to_double(x) for x in a))
     if isinstance(a, tuple):
         return tuple(_to_double(x) for x in a)
-    return a.double() if isinstance(a, torch.Tensor) else a
+    if isinstance(a, torch.Tensor) and a.is_floating_point():
+        return a.double()
+    return a
 
 
 def output_errors(name, got, want, want64):
@@ -244,17 +368,20 @@ def hold(name, case, dtype, errs):
     """Assert the tolerance table on one comparison's per-output errors."""
     for o, e in errs.items():
         where = f"{name}.{o} ({case}, {str(dtype)[6:]})"
-        tol = TOL_F64 if dtype == torch.float64 else TOL_F32[(name, case)][o]
+        tol = TOL_F32[(name, case)][o]
+        if dtype == torch.float64:          # elementwise outputs stay elementwise
+            elem = tol is not FLOOR and tol[0] == ELEM
+            tol = (ELEM, TOL_F64[0]) if elem else TOL_F64
         if tol is not FLOOR:
-            rtol, atol = tol
-            if name == "prepare_scaled":       # products only: elementwise
-                ok, e["tol"] = e["rel_elem"] <= rtol, f"{rtol:g} elementwise"
+            if tol[0] == ELEM:                 # products only: elementwise
+                ok, e["tol"] = e["rel_elem"] <= tol[1], f"{tol[1]:g} elementwise"
             else:
-                bound = rtol * e["scale"] + atol
+                bound = tol[0] * e["scale"] + tol[1]
                 ok, e["tol"] = e["abs_err"] <= bound, bound
             if not ok:
                 raise AssertionError(f"{where}: kernel disagrees with its plain version: {e}")
-        elif "kernel_vs_f64_plain" in e:
+        if (tol is FLOOR or (name == K3 and o in SETUP_GUARDED)) \
+                and "kernel_vs_f64_plain" in e:
             bound = GUARD * e["plain_vs_f64_plain"] + GUARD_ATOL
             if e["kernel_vs_f64_plain"] > bound:
                 raise AssertionError(
@@ -274,13 +401,20 @@ def compare(name, case, fn, plain, args, kw, dtype, check=True):
     return errs, got
 
 
-def time_ms(fn, reps=20, warmup=3):
+def time_ms(fn, reps=20, warmup=3, host_ahead=False):
+    """Median device time of one call between two CUDA events.  With
+    `host_ahead` the card is first kept busy for about 2 ms, so the host has
+    enqueued the whole call before the first event passes and its own time
+    (allocating outputs, marshalling pointers) is not counted: the time of
+    the kernel, not of its wrapper."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if host_ahead:
+            torch.cuda._sleep(4_000_000)
         a.record()
         fn()
         b.record()
@@ -293,8 +427,15 @@ def flops_of(name: str, batch: int, kw: dict) -> float:
     """Multiply-adds counted as 2, matvecs only (the elementwise tails are
     a few percent)."""
     n, m, k = N, M, KBLK
+    prep = lambda sweeps: sweeps * (2 * n * n + 4 * m * n) + 2 * (n * n + m * n)
     if name == "prepare_scaled":
-        per = kw["sweeps"] * (2 * n * n + 4 * m * n) + 2 * (n * n + m * n)
+        per = prep(kw["sweeps"])
+    elif name == K3:
+        # about 17,000 multiply-adds from the stages' loop bounds (Mc_jj 2.6k,
+        # foot Jacobians 2k, the J rows 1.7k, X 1.3k, kinematics 1.3k, world
+        # inertias 1.4k, ...), plus the prepare tail in the fused variant
+        qpp = kw["qp_params"]
+        per = 35_000 + (prep(qpp.scaling_iters) if qpp is not None else 0)
     elif name == "admm_zy_iterations_res":
         mv = 2 * (2 * m * n + n * n)                 # A^T t, K^-1 ., A .
         per = kw["iters"] * mv + 2 * (n * n + m * n) + 2 * (m * n + n * n) \
@@ -312,15 +453,20 @@ def check_kernels():
     rows = {}
     with torch.no_grad():
         cases, stats = kernel_problem(BATCH, torch.float32, rng)
-        for name, case, fn, plain, args, kw in cases:
+        setup_cases, stats["setup"] = setup_problem(BATCH, torch.float32, rng)
+        for name, case, fn, plain, args, kw in cases + setup_cases:
             errs, got = compare(name, case, fn, plain, args, kw, torch.float32)
             if case != "main":
                 rows[name][f"{case}_f32"] = errs
                 continue
-            ms = time_ms(lambda: fn(*args, **kw))
+            ms = time_ms(lambda: fn(*args, **kw), host_ahead=True)
+            ms_with_host = time_ms(lambda: fn(*args, **kw))
             plain_ms = time_ms(lambda: plain(*args, **kw), reps=5, warmup=1)
-            nbytes = sum(t.numel() * t.element_size() for t in flat_tensors(args)) \
-                + sum(t.numel() * t.element_size() for t in got)
+            if name == K3:
+                nbytes = setup_bytes(args, got)
+            else:
+                nbytes = sum(t.numel() * t.element_size() for t in flat_tensors(args)) \
+                    + sum(t.numel() * t.element_size() for t in got)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops_of(name, BATCH, kw) / F32_FLOPS * 1e3
             rows[name] = {
@@ -328,7 +474,7 @@ def check_kernels():
                 "replaces": REPLACES[name], "launches": 0,
                 "max_abs_err": max(e["abs_err"] for e in errs.values()),
                 "main_f32": errs,
-                "ms": ms, "plain_ms": plain_ms,
+                "ms": ms, "ms_with_wrapper_host_time": ms_with_host, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops_of(name, BATCH, kw),
@@ -336,11 +482,23 @@ def check_kernels():
                 "shape": {"B": BATCH, "n": N, "m": M, **{k: v for k, v in kw.items()
                                                          if isinstance(v, int)}},
             }
+            if name == K3:
+                # the variant without the prepare tail, and the same launch
+                # again: a race between threads would rarely repeat bit for bit
+                kw0 = dict(qp_params=None)
+                rows[name]["ms_plain_variant"] = time_ms(lambda: fn(*args, **kw0),
+                                                         host_ahead=True)
+                again = fn(*args, **kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError("setup kernel: two launches on the same "
+                                         "inputs differ")
         # the same cases in float64 (the scalar type is a template
         # parameter) at the full batch, and both types at a ragged batch
         for batch, dtype in ((BATCH, torch.float64), (37, torch.float32),
                              (37, torch.float64)):
             probs, _ = kernel_problem(batch, dtype, rng)
+            probs += setup_problem(batch, dtype, rng)[0]
             for name, case, fn, plain, args, kw in probs:
                 errs, _ = compare(name, case, fn, plain, args, kw, dtype)
                 rows[name][f"{case}_{str(dtype)[6:].replace('float', 'f')}_B{batch}"] = {
@@ -354,7 +512,8 @@ def check_kernels():
 # the main path
 # --------------------------------------------------------------------------
 
-def run_walk(batch: int, qpp: QPSolverParams, offsets, record=None, steps=None):
+def run_walk(batch: int, qpp: QPSolverParams, offsets, record=None, steps=None,
+             setup_backend="auto"):
     """Replay the recorded walk through wbc_step_batched on the card in
     float32.  Returns per-step host times (ms), max KKT and flagged counts;
     `record(t, out)` sees every step's output."""
@@ -373,52 +532,119 @@ def run_walk(batch: int, qpp: QPSolverParams, offsets, record=None, steps=None):
         if record is not None:
             record(t, out)
 
-    replay.replay(model, TRAJ, range(steps), batch, qpp, offsets, on_step, timed=True)
+    replay.replay(model, TRAJ, range(steps), batch, qpp, offsets, on_step, timed=True,
+                  setup_backend=setup_backend)
     return ms, kkts, flagged
 
 
-def main_path():
-    rng = np.random.default_rng(SEED + 1)
+COMPARE_STEPS = 70     # the window both paths run: steps 0..69, one contact switch
+# kernels each path must launch, and must not
+PATHS = {
+    "kernel": dict(steps=None, runs=(K3, "admm_zy_iterations_res", "polish_solve_compact"),
+                   never=("prepare_scaled",)),
+    "torch": dict(steps=COMPARE_STEPS,
+                  runs=("prepare_scaled", "admm_zy_iterations_res", "polish_solve_compact"),
+                  never=(K3,)),
+}
+
+
+def drive_path(setup_backend: str, offsets):
+    """One path of the control cycle at B = 4096 in float32, the launch
+    counts zeroed just before and read just after.  Returns (launches,
+    summary, [(tau, kkt) of the first COMPARE_STEPS steps])."""
+    spec = PATHS[setup_backend]
     qpp = QPSolverParams()
-    offsets = replay.make_offsets(BATCH, torch.float32, rng, DEV)
     # warm-up outside the counted run: first-use allocator and library
     # start-up costs are set-up, not step time
-    run_walk(BATCH, qpp, offsets, steps=3)
-    replay_steps = TRAJ["base_R"].shape[0]
+    run_walk(BATCH, qpp, offsets, steps=3, setup_backend=setup_backend)
+    n_steps = TRAJ["base_R"].shape[0] if spec["steps"] is None else spec["steps"]
+    kept = []
+
+    def record(t, out):
+        if t < COMPARE_STEPS:
+            kept.append((out.tau.clone(), out.qp_info.kkt_residual.clone()))
+
     kernels.reset_counts()
     qp.HOST_SYNCS = 0
     torch.cuda.reset_peak_memory_stats()
-    ms, kkts, flagged = run_walk(BATCH, qpp, offsets)
+    ms, kkts, flagged = run_walk(BATCH, qpp, offsets, record, n_steps, setup_backend)
     launches = kernels.launch_counts()
     plain = kernels.plain_counts()
     syncs = qp.HOST_SYNCS
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+    for k in spec["runs"]:
+        if launches[k] == 0:
+            raise AssertionError(f"{setup_backend} path: {k} was never launched: {launches}")
+    for k in spec["never"]:
+        if launches[k] != 0:
+            raise AssertionError(f"{setup_backend} path launched {k}: {launches}")
+    once = K3 if setup_backend == "kernel" else "prepare_scaled"
+    if launches[once] != n_steps:
+        raise AssertionError(f"{once}: {launches[once]} launches in {n_steps} steps")
     if any(plain.values()):
-        raise AssertionError(f"a plain version ran on the main path: {plain}")
+        raise AssertionError(f"a plain version ran on the {setup_backend} path: {plain}")
     n_flag = sum(flagged)
-    if n_flag > 1e-4 * BATCH * replay_steps:
+    if n_flag > 1e-4 * BATCH * n_steps:
         raise AssertionError(
-            f"{n_flag} flagged scenario-steps (kkt > threshold) of {BATCH * replay_steps}")
+            f"{n_flag} flagged scenario-steps (kkt > threshold) of {BATCH * n_steps}")
+    if max(kkts) > 3e-3:
+        raise AssertionError(f"{setup_backend} path: max KKT {max(kkts):.3e} > 3e-3")
     steady = sorted(ms[1:])
     med = statistics.median(steady)
     return launches, {
-        "steps": replay_steps, "batch": BATCH, "dtype": "float32",
+        "setup_backend": setup_backend,
+        "steps": n_steps, "batch": BATCH, "dtype": "float32",
         "ms_per_step_median": med,
         "ms_per_step_p90": steady[int(0.9 * (len(steady) - 1))],
         "ms_first_step": ms[0],
         "solves_per_s": BATCH / (med * 1e-3),
         "max_kkt": max(kkts), "flagged_max": max(flagged),
         "flagged_scenario_steps": n_flag,
-        "launches_per_step": {k: v / replay_steps for k, v in launches.items()},
-        "host_syncs_per_step": syncs / replay_steps,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "host_syncs_per_step": syncs / n_steps,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-    }
+    }, kept
+
+
+def compare_paths(kept_kernel, kept_torch):
+    """The two paths against each other, same offsets, steps 0..69: per step
+    max |tau_kernel - tau_torch| and max |KKT difference| over the batch.
+    Asserted only on the scenario-steps both paths certify (relative KKT <
+    1e-5), to 1e-3 N.m: an uncertified float32 step keeps an ADMM iterate,
+    and two of those differ by the ADMM's accuracy, not by rounding."""
+    per_step, worst_cert, n_cert = [], 0.0, 0
+    for (ta, ka), (tb, kb) in zip(kept_kernel, kept_torch):
+        dtau = (ta.double() - tb.double()).abs().amax(dim=1)
+        cert = (ka < 1e-5) & (kb < 1e-5)
+        c = float(dtau[cert].max()) if bool(cert.any()) else 0.0
+        worst_cert, n_cert = max(worst_cert, c), n_cert + int(cert.sum())
+        per_step.append({"max_dtau_Nm": float(dtau.max()), "max_dtau_Nm_certified": c,
+                         "max_dkkt": float((ka - kb).abs().max()),
+                         "certified": int(cert.sum())})
+    if n_cert == 0:
+        raise AssertionError("no scenario-step certified by both paths")
+    if worst_cert > 1e-3:
+        raise AssertionError(f"paths differ by {worst_cert:.3e} N.m on a certified step")
+    return {"steps": len(per_step), "certified_scenario_steps": n_cert,
+            "max_dtau_Nm_certified": worst_cert,
+            "max_dtau_Nm": max(r["max_dtau_Nm"] for r in per_step),
+            "max_dkkt": max(r["max_dkkt"] for r in per_step), "per_step": per_step}
+
+
+def main_paths():
+    offsets = replay.make_offsets(BATCH, torch.float32, np.random.default_rng(SEED + 1), DEV)
+    launches_k, main_k, kept_k = drive_path("kernel", offsets)
+    launches_t, main_t, kept_t = drive_path("torch", offsets)
+    # every kernel is launched on at least one path; a kernel's row carries
+    # the count of the path that runs it
+    launches = {k: launches_k[k] or launches_t[k] for k in launches_k}
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel was launched on no path: {launches}")
+    return launches, main_k, main_t, compare_paths(kept_k, kept_t)
 
 
 def torque_parity():
-    """B = 8 unperturbed replay through the kernels against the float64
-    torque record.  Two configurations: the shipped defaults, where a step's
+    """B = 8 unperturbed replay through the main path (fused setup kernel)
+    against the float64 torque record.  Two configurations: the shipped defaults, where a step's
     torque is held to the record only where the solver certifies it
     (relative KKT < 1e-5; the 3e-3 rescue threshold leaves uncertified
     steps at ADMM accuracy), and the certificate configuration
@@ -470,13 +696,16 @@ def main():
                     if "registers" in ln or "error" in ln.lower()]})
 
     rows, stats = check_kernels()
-    launches, main = main_path()
+    launches, main_k, main_t, versus = main_paths()
+    parity = torque_parity()
     for k, v in launches.items():
         rows[k]["launches"] = v
+    emit({"main_path": main_k, "card": name, "power_limit": limit})
+    emit({"main_path": main_t, "card": name, "power_limit": limit})
+    emit({"kernel_path_vs_torch_path": versus, "card": name, "power_limit": limit})
+    emit({"torque_parity": parity, "card": name, "power_limit": limit})
     emit({"kernels": list(rows.values()), "problem": stats,
           "card": name, "power_limit": limit})
-    emit({"main_path": main, "card": name, "power_limit": limit})
-    emit({"torque_parity": torque_parity(), "card": name, "power_limit": limit})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -41,6 +41,7 @@ from quadrupedwholebodycontroller_tpu_torch.ops import dynamics as D
 from quadrupedwholebodycontroller_tpu_torch.ops import kinematics as K
 from quadrupedwholebodycontroller_tpu_torch.ops import qp
 from quadrupedwholebodycontroller_tpu_torch.ops import spatial
+from quadrupedwholebodycontroller_tpu_torch.ops.kernels import setup as setup_kernel
 from quadrupedwholebodycontroller_tpu_torch.ops.linalg import spd_inv12
 
 
@@ -360,7 +361,7 @@ def wbc_step_batched(
     qp_backend: str = "kernel",
     qp_cache: "qp.QPCache | None" = None,
     cache_valid=False,
-    setup_backend: str = "torch",
+    setup_backend: str = "auto",
 ):
     """One batched 400 Hz control cycle; returns (out, carry, cache).
 
@@ -372,13 +373,16 @@ def wbc_step_batched(
     is the scalar warm gate, False on the first cycle; contact switches
     inside the batch cold-restart only the scenarios that switched.
 
-    qp_backend: "kernel" (the three solver kernels).  setup_backend:
-    "torch" (batched tensor code); the fused setup kernel is not ported.
+    qp_backend: "kernel" (the solver kernels).  setup_backend: "kernel"
+    (the fused setup kernel `ops.kernels.setup.setup_batched`, with the QP
+    prepare stage fused in and handed to the solver as `prepared=`),
+    "torch" (`wbc_setup`, batched tensor code, then the prepare kernel: the
+    kernel path's oracle) or "auto": "kernel" with the kernel QP backend.
 
     ref_is_new may be a bool or a per-scenario (B,) bool tensor."""
-    if setup_backend == "kernel":
-        raise NotImplementedError("fused setup kernel: next slice")
-    if setup_backend != "torch":
+    if setup_backend == "auto":
+        setup_backend = "kernel" if qp_backend == "kernel" else "torch"
+    if setup_backend not in ("kernel", "torch"):
         raise ValueError(f"setup_backend={setup_backend!r}")
     if qp_backend != "kernel":
         raise NotImplementedError(
@@ -389,7 +393,19 @@ def wbc_step_batched(
     B = obs.q.shape[0]
     dev = obs.q.device
     ref_is_new_b = torch.as_tensor(ref_is_new, dtype=torch.bool, device=dev).expand(B)
-    setup = wbc_setup(model, params, obs, ref, carry, ref_is_new_b)
+    prepared = None
+    if setup_backend == "kernel":
+        sk = setup_kernel.setup_batched(model, params, obs, ref, carry,
+                                        ref_is_new_b, qp_params=qp_params)
+        setup = WBCSetup(
+            qp_data=qp.QPData(H=sk["H"], g=sk["g"], A=sk["A"], l=sk["l"], u=sk["u"]),
+            h_c=sk["h_c"], Mc_jj=sk["Mc_jj"], Jc_st_j=sk["Jc_st_j"], com=sk["com"],
+            current_pose=sk["current_pose"], foot_pos=sk["foot_pos"],
+            carry_updates=sk["carry_updates"],
+        )
+        prepared = sk["prepared"]   # its warm start is already switch-masked
+    else:
+        setup = wbc_setup(model, params, obs, ref, carry, ref_is_new_b)
     switch = setup.carry_updates["switch_flag"]
     warm = _switch_masked_warm(carry, switch)
     # cache invalidation keys on the switch EDGE (contacts changed at THIS
@@ -407,6 +423,7 @@ def wbc_step_batched(
     qp_state, qp_info, new_cache = qp.solve_batched(
         setup.qp_data, warm, qp_params, qp_backend,
         cache=qp_cache, use_warm=use_warm, hinv_fn=_wbc_polish_hinv,
+        prepared=prepared,
     )
     out, new_carry = _finish_step(setup, qp_state, qp_info)
     return out, new_carry, new_cache

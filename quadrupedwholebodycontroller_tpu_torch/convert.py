@@ -28,12 +28,14 @@ _STATIC_FIELDS = ("name", "joint_names", "frame_names", "parent", "frame_body")
 
 def _t(a, dtype, device):
     # np.array copies: the source may be a read-only view (a broadcast, the
-    # buffer of another framework's array)
-    return torch.as_tensor(np.array(a), device=device).to(dtype)
+    # buffer of another framework's array); order="C" because the copy of a
+    # broadcast otherwise keeps its batch axis innermost, and the kernels take
+    # contiguous batch-major tensors only
+    return torch.as_tensor(np.array(a, order="C"), device=device).to(dtype)
 
 
 def _b(a, device):
-    return torch.as_tensor(np.array(a), device=device).to(torch.bool)
+    return torch.as_tensor(np.array(a, order="C"), device=device).to(torch.bool)
 
 
 def model_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> RobotModel:

@@ -1,8 +1,32 @@
-// Helpers shared by the solver kernels: one thread block per scenario, the
+// Helpers shared by the kernels: one thread block per scenario, the
 // scenario's matrices in (dynamic) shared memory with an odd row stride,
 // vectors in shared memory, one thread per output row.
+//
+// Code written with QWBC_FOR / QWBC_SYNC alone (every value that crosses a
+// barrier lives in shared memory, none in a register) also compiles as plain
+// C++: a block is then one thread that runs each stage's items in turn, in
+// rising or falling order (qwbc_host_reverse), so a test without a GPU can
+// check the arithmetic and that no item of a stage reads what another item
+// of the same stage writes.  It cannot show a missing barrier.
 #pragma once
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#define QWBC_FOR(i, n) for (int i = threadIdx.x; i < (n); i += blockDim.x)
+#define QWBC_SYNC() __syncthreads()
+#else
+#include <math.h>
+#include <cmath>
+#include <cstddef>
+#define __host__
+#define __device__
+#define __global__
+#define __forceinline__ inline
+extern "C" int qwbc_host_reverse;
+#define QWBC_FOR(i, n)                                                       \
+  for (int i##_k = 0, i##_n = (n), i = (qwbc_host_reverse ? i##_n - 1 : 0);  \
+       i##_k < i##_n; ++i##_k, i += (qwbc_host_reverse ? -1 : 1))
+#define QWBC_SYNC() ((void)0)
+#endif
 
 namespace qwbc {
 
@@ -10,6 +34,7 @@ namespace qwbc {
 // different banks across a warp (42- and 70-word rows would 2-way conflict).
 __host__ __device__ inline int row_stride(int cols) { return cols | 1; }
 
+#ifdef __CUDACC__
 // Raises a kernel's dynamic shared-memory limit above the 48 KB default,
 // once per kernel instantiation and size (float64 at m = 70 needs 69 KB);
 // launches within the limit already granted call nothing.  Returns a
@@ -23,6 +48,8 @@ inline int allow_shared_memory(Kernel kernel, size_t bytes) {
   if (err == cudaSuccess) granted = bytes;
   return (int)err;
 }
+
+#endif  // __CUDACC__
 
 // max that propagates NaN (fmax would swallow it and certify a bad iterate)
 template <typename T>
@@ -39,6 +66,18 @@ __device__ __forceinline__ T clip(T v, T lo, T hi) {   // min(max(v, lo), hi), N
 template <typename T>
 __device__ __forceinline__ T absv(T v) { return v < T(0) ? -v : v; }
 
+// Cooperative load of a dense row-major (rows, cols) matrix into shared
+// memory with row stride `stride`; global reads are coalesced.
+template <typename T>
+__device__ __forceinline__ void load_matrix(T* dst, const T* __restrict__ src,
+                                            int rows, int cols, int stride) {
+  QWBC_FOR(idx, rows * cols) {
+    const int r = idx / cols, c = idx - r * cols;
+    dst[r * stride + c] = src[idx];
+  }
+}
+
+#ifdef __CUDACC__
 // Block-wide NaN-propagating max; every thread of the block must call it.
 // `scratch` holds one value per warp.  Returns the max to all threads.
 template <typename T>
@@ -54,16 +93,7 @@ __device__ T block_max(T v, T* scratch) {
   return r;
 }
 
-// Cooperative load of a dense row-major (rows, cols) matrix into shared
-// memory with row stride `stride`; global reads are coalesced.
-template <typename T>
-__device__ __forceinline__ void load_matrix(T* dst, const T* __restrict__ src,
-                                            int rows, int cols, int stride) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
-    const int r = idx / cols, c = idx - r * cols;
-    dst[r * stride + c] = src[idx];
-  }
-}
+#endif  // __CUDACC__
 
 // out_row = sum_j M[row][j] * v[j]   (M in shared memory, v in shared memory)
 template <typename T>
@@ -84,6 +114,7 @@ __device__ __forceinline__ T col_dot(const T* M, int stride, int col,
   return acc;
 }
 
+#ifdef __CUDACC__
 // Relative KKT residuals (OSQP normalization) and sign violation of an
 // unscaled primal/dual pair, from per-thread row/column values:
 //   thread i < m holds ax_i, y_i (unscaled) and the clipped bounds lo_i, uo_i;
@@ -129,5 +160,7 @@ __device__ void kkt_epilogue(bool is_row, bool is_col, T ax, T y, T lo, T uo,
     sv[b] = svn;
   }
 }
+
+#endif  // __CUDACC__
 
 }  // namespace qwbc

@@ -10,11 +10,7 @@
 // against roughly 50 kflop of max-reductions.  The design reads H and A from
 // device memory exactly once into shared memory, runs all sweeps there, and
 // writes the scaled problem in one coalesced pass.
-//
-// Equality rows are detected on the UNSCALED bounds (u - l <= 1e-9): the
-// scaled difference e*u - e*l may be contracted into an FMA whose exact
-// partial product makes an exactly-equal row look unequal.
-#include "common.cuh"
+#include "prepare_tail.cuh"
 
 namespace qwbc {
 
@@ -33,60 +29,21 @@ __global__ void prepare_kernel(
   const int sn = row_stride(n);
   T* Hs = smem;              // n * sn
   T* As = Hs + n * sn;       // m * sn
-  T* ds = As + m * sn;       // n
-  T* es = ds + n;            // m
+  T* d0 = As + m * sn;       // n, m, n, m: the scalings, double-buffered
+  T* e0 = d0 + n;
+  T* d1 = e0 + m;
+  T* e1 = d1 + n;
 
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const size_t bn = (size_t)b * n, bm = (size_t)b * m;
+  const size_t bn = (size_t)blockIdx.x * n, bm = (size_t)blockIdx.x * m;
   load_matrix(Hs, H + bn * n, n, n, sn);
   load_matrix(As, A + bm * n, m, n, sn);
-  if (tid < n) ds[tid] = T(1);
-  if (tid < m) es[tid] = T(1);
   __syncthreads();
-
-  for (int s = 0; s < sweeps; ++s) {
-    T cx = T(0), rz = T(0);
-    if (tid < n) {           // column tid of |H| d d and |A| e d
-      const T dj = ds[tid];
-      for (int i = 0; i < n; ++i)
-        cx = nan_max(cx, absv(Hs[i * sn + tid]) * dj * ds[i]);
-      for (int i = 0; i < m; ++i)
-        cx = nan_max(cx, absv(As[i * sn + tid]) * es[i] * dj);
-    }
-    if (tid < m) {           // row tid of |A| e d
-      const T ei = es[tid];
-      for (int j = 0; j < n; ++j)
-        rz = nan_max(rz, absv(As[tid * sn + j]) * ei * ds[j]);
-    }
-    __syncthreads();
-    if (tid < n) ds[tid] = ds[tid] * (T(1) / sqrt(nan_max(cx, T(1e-8))));
-    if (tid < m) es[tid] = es[tid] * (T(1) / sqrt(nan_max(rz, T(1e-8))));
-    __syncthreads();
-  }
-
-  for (int idx = tid; idx < n * n; idx += blockDim.x) {
-    const int i = idx / n, j = idx - i * n;
-    sH[bn * n + idx] = Hs[i * sn + j] * ds[j] * ds[i];
-  }
-  for (int idx = tid; idx < m * n; idx += blockDim.x) {
-    const int i = idx / n, j = idx - i * n;
-    sA[bm * n + idx] = As[i * sn + j] * es[i] * ds[j];
-  }
-  if (tid < n) {
-    const T d = ds[tid];
-    sg[bn + tid] = d * g[bn + tid];
-    wxs[bn + tid] = wx[bn + tid] / d;
-    dout[bn + tid] = d;
-  }
-  if (tid < m) {
-    const T e = es[tid], lv = l[bm + tid], uv = u[bm + tid];
-    sl[bm + tid] = e * lv;
-    su[bm + tid] = e * uv;
-    rho[bm + tid] = ((uv - lv) <= T(1e-9)) ? rho_eq : rho0;
-    wzs[bm + tid] = wz[bm + tid] * e;
-    wys[bm + tid] = wy[bm + tid] / e;
-    eout[bm + tid] = e;
-  }
+  // the body is shared with the fused setup kernel (prepare_tail.cuh)
+  prepare_tail(Hs, As, sn, d0, e0, d1, e1, g + bn, l + bm, u + bm,
+               wx + bn, wz + bm, wy + bm, false,
+               sH + bn * n, sA + bm * n, sg + bn, sl + bm, su + bm, rho + bm,
+               wxs + bn, wzs + bm, wys + bm, dout + bn, eout + bm,
+               n, m, sweeps, rho0, rho_eq);
 }
 
 template <typename T>
@@ -97,7 +54,7 @@ int launch_prepare(const void* H, const void* A, const void* g, const void* l,
                    int B, int n, int m, int sweeps, T rho0, T rho_eq,
                    void* stream) {
   const int sn = row_stride(n);
-  const size_t smem = sizeof(T) * ((size_t)(n + m) * sn + n + m);
+  const size_t smem = sizeof(T) * ((size_t)(n + m) * sn + 2 * (n + m));
   const int mx = n > m ? n : m;
   const int threads = ((mx + 31) / 32) * 32;
   if (int err = allow_shared_memory(prepare_kernel<T>, smem)) return err;

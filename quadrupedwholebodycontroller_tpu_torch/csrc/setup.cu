@@ -1,0 +1,793 @@
+// The whole WBC setup of one control cycle in one launch, one block per
+// scenario: contact bookkeeping, forward kinematics, Jacobian parts, the
+// velocity-product recursion, the mass-matrix blocks, the closed-form inverse
+// of the base block, the centroidal blocks, T and d(T^-1)/dt, the foot
+// Jacobians, the finite differences, the desired wrench, the swing
+// accelerations and the assembly of the 42 x 70 QP; in the fused variant
+// also H, the Ruiz sweeps, the scaled problem, rho and the scaled,
+// switch-masked warm start (prepare_tail.cuh, shared with prepare.cu).
+//
+// Replaces the TPU kernel ops/pallas/setup_kernel.py::setup_batched
+// (_setup_call, kernel body _make_kernel) of the JAX package, its plain and
+// its fused-prepare variant (not exact_mode).  That kernel keeps 128
+// scenarios on the lane axis, one scenario per lane, with the robot model
+// baked into the generated code.  Here one thread block owns one scenario,
+// the model is data (a packed table of constants and the tree's topology in
+// device memory, see ops/kernels/setup.py), so one binary serves any tree of
+// 13 bodies and 4 feet, and sin, cos and the base's roll-pitch-yaw are taken
+// in the kernel.
+//
+// Bound on this card: bytes.  A scenario reads about 1,000 words and writes
+// about 5,200 (plain) or 10,700 (fused: the scaled H and A again) against a
+// few tens of kflop.  The design keeps every intermediate in shared memory,
+// assembles A and H there, runs the Ruiz sweeps on them in place and writes
+// each output once, coalesced.  The body is a chain of small dependent
+// stages (3-, 6-, 12- and 18-wide contractions over the tree): each stage
+// spreads its independent items (bodies of one tree level, matrix entries,
+// rows) over the block's threads and ends in a barrier; nothing that crosses
+// a barrier is held in a register, so the same source also runs as plain C++
+// (common.cuh) where the arithmetic is checked without a GPU.
+//
+// Rows 0-17 of the QP are equalities because the SAME value is stored to l
+// and u; each is computed once and stored twice, never recomputed per side
+// (an FMA contraction could make the two differ by an ulp and rho would drop
+// by rho_eq_scale).  One-sided bounds are +-1e20, never inf.
+#include "prepare_tail.cuh"
+
+namespace qwbc {
+
+constexpr int NB = 13, NJ = 12, NL = 4, NV = 18, NQ = 42, MQ = 70;
+constexpr int SN = NQ + 1;            // odd row stride of A and H in shared memory
+
+// ---- the packed model + controller constants (ops/kernels/setup.py) ----
+// per joint: M0, M1, M2 (joint rotation R_j (I + s K + (1-c) K^2) split by
+// its coefficients, 9 each), the joint origin and R_j axis in the parent frame
+constexpr int CJ_M0 = 0, CJ_M1 = 9, CJ_M2 = 18, CJ_P = 27, CJ_AX = 30, CJ_SIZE = 33;
+// per body: mass, mass / total mass, centre of mass (3), inertia (9)
+constexpr int CB_MASS = 0, CB_WM = 1, CB_COM = 2, CB_INERTIA = 5, CB_SIZE = 14;
+constexpr int MC_JOINT = 0;
+constexpr int MC_BODY = MC_JOINT + NJ * CJ_SIZE;
+constexpr int MC_FOOT = MC_BODY + NB * CB_SIZE;          // per foot: position (3)
+constexpr int MC_SCAL = MC_FOOT + NL * 3;
+enum {
+  SC_MTOT, SC_INV_M, SC_INV_M2, SC_MG, SC_DT, SC_INV_DT, SC_MU,
+  SC_KP,                                                  // 6 values
+  SC_KD = SC_KP + 6, SC_KI, SC_KP_SWING, SC_KD_SWING, SC_TAU_MAX,
+  SC_SLACK_W, SC_INF, SC_COUNT
+};
+constexpr int MC_SIZE = MC_SCAL + SC_COUNT;
+// topology: parent, depth and ancestor-joint mask of every body, the feet's
+// bodies, the tree's depth
+constexpr int TP_PARENT = 0, TP_DEPTH = NB, TP_ANC = 2 * NB, TP_FOOT = 3 * NB,
+              TP_MAXDEPTH = 3 * NB + NL, TP_SIZE = 3 * NB + NL + 1;
+
+// ---- the pointer table handed over by the wrapper, in this order ----
+enum {
+  // inputs of type T
+  I_R0, I_P0, I_BV, I_Q, I_QD, I_RPOSE, I_RVEL, I_RACC, I_SPOS, I_SVEL, I_SACC,
+  I_RCON, I_OLD_T, I_OLD_JST, I_OLD_JSW, I_TDINV, I_INTEG, I_PREVC,
+  I_WX, I_WZ, I_WY, I_MC,
+  // inputs of other types: bytes (bool) and int
+  I_SWFLAG, I_DERIVV, I_REFNEW, I_TOPO,
+  // outputs of type T
+  O_A, O_G, O_L, O_U, O_H, O_HC, O_COM, O_POSE, O_FPOS, O_MCJJ, O_JSTJ,
+  O_T, O_JST, O_JSW, O_TDINV, O_INTEG, O_PREVC,
+  O_SH, O_SA, O_SG, O_SL, O_SU, O_RHO, O_WXS, O_WZS, O_WYS, O_D, O_E,
+  // output bytes (bool)
+  O_SWFLAG,
+  N_PTRS
+};
+
+struct SetupPtrs {
+  void* p[N_PTRS];
+};
+
+template <typename T>
+struct SetupShared {
+  T A[MQ][SN], H[NQ][SN];            // the QP under assembly
+  T g[NQ], l[MQ], u[MQ];
+  T d[2][NQ], e[2][MQ];              // Ruiz scalings, double-buffered
+  T u18[NV];                         // [base twist; qd]
+  T sq[NJ], cq[NJ], rpy[3];
+  T rpose[6], rvel[6], racc[6], spos[12], svel[12], sacc[12], integ[6];
+  T con[NL];                         // contacts in force this cycle
+  T gate;                            // 0 where the finite differences are void
+  int dropd;                         // contact switch: drop the warm duals
+  T R[NB][9], p[NB][3], cw[NB][3], r[NB][3], axw[NJ][3];
+  T w[NB][3], al[NB][3], ao[NB][3];  // velocity-product recursion
+  T Iw[NB][9], F[NB][3], Nb[NB][3];
+  T jq[NB][NJ][3], Iwa[NB][NJ][3];   // zero where joint j does not move body b
+  T com[3], dcom[3], cvel[6];
+  T hcor[NV], mr[3], rot[9];
+  T Mbj[6][NJ], Mjj[NJ][NJ], Mb[6][6], Mbi[6][6];
+  T X0[6][NJ], Xr[6][NJ], X[6][NJ], MbX[6][NJ];
+  T Mcb[6][6], Ttop[6][NV], Td[6][NV], adjD[6][NV];
+  T tdu[6], hMT[NV], hc[NV];
+  T Jcf[NL][3][NV];                  // centroidal foot Jacobians, unmasked
+  T fpos[12], fvel[12], wdes[6];
+};
+
+template <typename T>
+__device__ __forceinline__ void cross3(const T* a, const T* b, T* o) {
+  o[0] = a[1] * b[2] - a[2] * b[1];
+  o[1] = a[2] * b[0] - a[0] * b[2];
+  o[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+template <typename T>
+__device__ __forceinline__ T cross_k(const T* a, const T* b, int k) {
+  const int k1 = (k + 1) % 3, k2 = (k + 2) % 3;
+  return a[k1] * b[k2] - a[k2] * b[k1];
+}
+
+template <typename T>
+__device__ __forceinline__ T dot3(const T* a, const T* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// row i of the 3x3 row-major M times v
+template <typename T>
+__device__ __forceinline__ T mv3_row(const T* M, int i, const T* v) {
+  return M[3 * i] * v[0] + M[3 * i + 1] * v[1] + M[3 * i + 2] * v[2];
+}
+
+template <typename T>
+__device__ __forceinline__ void mm3(const T* A, const T* B, T* C) {
+  for (int i = 0; i < 3; ++i)
+    for (int l = 0; l < 3; ++l)
+      C[3 * i + l] = A[3 * i] * B[l] + A[3 * i + 1] * B[3 + l] + A[3 * i + 2] * B[6 + l];
+}
+
+template <typename T>
+__device__ __forceinline__ void skew3(const T* v, T* S) {
+  S[0] = T(0); S[1] = -v[2]; S[2] = v[1];
+  S[3] = v[2]; S[4] = T(0); S[5] = -v[0];
+  S[6] = -v[1]; S[7] = v[0]; S[8] = T(0);
+}
+
+// closed-form 3x3 inverse: adjugate times 1 / det
+template <typename T>
+__device__ void inv3(const T* M, T* O) {
+  const T a = M[0], b = M[1], c = M[2], d = M[3], e = M[4], f = M[5],
+          g = M[6], h = M[7], i = M[8];
+  const T co00 = e * i - f * h, co01 = c * h - b * i, co02 = b * f - c * e;
+  const T co10 = f * g - d * i, co11 = a * i - c * g, co12 = c * d - a * f;
+  const T co20 = d * h - e * g, co21 = b * g - a * h, co22 = a * e - b * d;
+  const T inv_det = T(1) / (a * co00 + b * co10 + c * co20);
+  O[0] = co00 * inv_det; O[1] = co01 * inv_det; O[2] = co02 * inv_det;
+  O[3] = co10 * inv_det; O[4] = co11 * inv_det; O[5] = co12 * inv_det;
+  O[6] = co20 * inv_det; O[7] = co21 * inv_det; O[8] = co22 * inv_det;
+}
+
+// (Y @ adj)[p][c] for one row Y of 6, adj = [[I, skew(d)], [0, I]]
+template <typename T>
+__device__ __forceinline__ T adj_right(const T* Y, const T* d, int c) {
+  if (c < 3) return Y[c];
+  if (c == 3) return Y[3] + Y[1] * d[2] - Y[2] * d[1];
+  if (c == 4) return Y[4] - Y[0] * d[2] + Y[2] * d[0];
+  return Y[5] + Y[0] * d[1] - Y[1] * d[0];
+}
+
+template <typename T>
+__device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
+                            int fused, int sweeps, T rho0, T rho_eq,
+                            SetupShared<T>& S) {
+  auto in = [&](int k) { return static_cast<const T*>(a.p[k]); };
+  auto out = [&](int k) { return static_cast<T*>(a.p[k]); };
+  auto flag = [&](int k) { return static_cast<const unsigned char*>(a.p[k]); };
+  const T* mc = in(I_MC);
+  const int* tp = static_cast<const int*>(a.p[I_TOPO]);
+  const int* parent = tp + TP_PARENT;
+  const int* depth = tp + TP_DEPTH;
+  const int* anc = tp + TP_ANC;
+  const int* foot_body = tp + TP_FOOT;
+  const int max_depth = tp[TP_MAXDEPTH];
+  const T* sc = mc + MC_SCAL;
+  const size_t sb = (size_t)b;
+  auto cj = [&](int j) { return mc + MC_JOINT + j * CJ_SIZE; };
+  auto cb = [&](int bb) { return mc + MC_BODY + bb * CB_SIZE; };
+  auto moves = [&](int bb, int j) { return ((anc[bb] >> j) & 1) != 0; };
+
+  // ---- stage: load, sin/cos, roll-pitch-yaw, contact bookkeeping ----
+  QWBC_FOR(i, MQ * SN) (&S.A[0][0])[i] = T(0);
+  QWBC_FOR(i, NQ * SN) (&S.H[0][0])[i] = T(0);
+  QWBC_FOR(i, 9) S.R[0][i] = in(I_R0)[sb * 9 + i];
+  QWBC_FOR(i, 3) {
+    S.p[0][i] = in(I_P0)[sb * 3 + i];
+    S.w[0][i] = in(I_BV)[sb * 6 + 3 + i];
+    S.al[0][i] = T(0);
+    S.ao[0][i] = T(0);
+  }
+  QWBC_FOR(i, 6) {
+    S.u18[i] = in(I_BV)[sb * 6 + i];
+    S.rpose[i] = in(I_RPOSE)[sb * 6 + i];
+    S.rvel[i] = in(I_RVEL)[sb * 6 + i];
+    S.racc[i] = in(I_RACC)[sb * 6 + i];
+    S.integ[i] = in(I_INTEG)[sb * 6 + i];
+  }
+  QWBC_FOR(i, NJ) {
+    const T q = in(I_Q)[sb * NJ + i];
+    S.sq[i] = sin(q);
+    S.cq[i] = cos(q);
+    S.u18[6 + i] = in(I_QD)[sb * NJ + i];
+    S.spos[i] = in(I_SPOS)[sb * 12 + i];
+    S.svel[i] = in(I_SVEL)[sb * 12 + i];
+    S.sacc[i] = in(I_SACC)[sb * 12 + i];
+  }
+  QWBC_FOR(one, 1) {
+    // the reference-update bookkeeping: a new reference publishes its
+    // contacts and raises the switch flag if they changed; between
+    // references both are held
+    const bool is_new = flag(I_REFNEW)[sb * refnew_stride] != 0;
+    bool changed = false;
+    for (int f = 0; f < NL; ++f)
+      changed = changed || (in(I_RCON)[sb * NL + f] != in(I_PREVC)[sb * NL + f]);
+    const bool sw = is_new ? changed : (flag(I_SWFLAG)[sb] != 0);
+    for (int f = 0; f < NL; ++f) {
+      const T c = is_new ? in(I_RCON)[sb * NL + f] : in(I_PREVC)[sb * NL + f];
+      S.con[f] = c;
+      out(O_PREVC)[sb * NL + f] = c;
+    }
+    static_cast<unsigned char*>(a.p[O_SWFLAG])[sb] = sw ? 1 : 0;
+    S.gate = (sw || flag(I_DERIVV)[sb] == 0) ? T(0) : T(1);
+    S.dropd = sw ? 1 : 0;
+    const T* R = in(I_R0) + sb * 9;
+    S.rpy[0] = atan2(R[7], R[8]);
+    S.rpy[1] = atan2(-R[6], sqrt(R[7] * R[7] + R[8] * R[8]));
+    S.rpy[2] = atan2(R[3], R[0]);
+  }
+  QWBC_SYNC();
+
+  // ---- stages: forward kinematics and the velocity-product recursion,
+  // one tree level at a time (the bodies of a level are independent) ----
+  for (int lev = 1; lev <= max_depth; ++lev) {
+    QWBC_FOR(bb, NB) {
+      if (depth[bb] != lev) continue;
+      const int j = bb - 1, pb = parent[bb];
+      const T* c = cj(j);
+      const T s = S.sq[j], c1 = T(1) - S.cq[j], qdj = S.u18[6 + j];
+      T N[9];
+      for (int k = 0; k < 9; ++k)
+        N[k] = c[CJ_M0 + k] + s * c[CJ_M1 + k] + c1 * c[CJ_M2 + k];
+      const T* Rp = S.R[pb];
+      mm3(Rp, N, S.R[bb]);
+      T rl[3], t1[3], t2[3];
+      for (int i = 0; i < 3; ++i) {
+        S.p[bb][i] = S.p[pb][i] + mv3_row(Rp, i, c + CJ_P);
+        S.axw[j][i] = mv3_row(Rp, i, c + CJ_AX);
+        rl[i] = S.p[bb][i] - S.p[pb][i];
+      }
+      cross3(S.al[pb], rl, t1);
+      cross3(S.w[pb], rl, t2);
+      T t3[3];
+      cross3(S.w[pb], t2, t3);
+      cross3(S.w[pb], S.axw[j], t2);
+      for (int i = 0; i < 3; ++i) {
+        S.ao[bb][i] = S.ao[pb][i] + t1[i] + t3[i];
+        S.w[bb][i] = S.w[pb][i] + qdj * S.axw[j][i];
+        S.al[bb][i] = S.al[pb][i] + qdj * t2[i];
+      }
+    }
+    QWBC_SYNC();
+  }
+
+  // ---- stage: body centres of mass, world inertias R I R^T ----
+  QWBC_FOR(i, NB * 3) {
+    const int bb = i / 3, k = i % 3;
+    const T v = S.p[bb][k] + mv3_row(S.R[bb], k, cb(bb) + CB_COM);
+    S.cw[bb][k] = v;
+    S.r[bb][k] = v - S.p[0][k];
+  }
+  QWBC_FOR(i, NB * 9) {
+    const int bb = i / 9, row = (i % 9) / 3, jr = i % 3;
+    const T* I = cb(bb) + CB_INERTIA;
+    const T* R = S.R[bb];
+    T acc = T(0);
+    for (int k = 0; k < 3; ++k) {
+      const T a1 = R[3 * row] * I[k] + R[3 * row + 1] * I[3 + k] + R[3 * row + 2] * I[6 + k];
+      acc += a1 * R[3 * jr + k];
+    }
+    S.Iw[bb][3 * row + jr] = acc;
+  }
+  QWBC_SYNC();
+
+  // ---- stage: Jacobian parts, centre of mass ----
+  QWBC_FOR(i, NB * NJ) {
+    const int bb = i / NJ, j = i % NJ;
+    T v[3] = {T(0), T(0), T(0)};
+    if (moves(bb, j)) {
+      const T dlt[3] = {S.cw[bb][0] - S.p[j + 1][0], S.cw[bb][1] - S.p[j + 1][1],
+                        S.cw[bb][2] - S.p[j + 1][2]};
+      cross3(S.axw[j], dlt, v);
+    }
+    for (int k = 0; k < 3; ++k) S.jq[bb][j][k] = v[k];
+  }
+  QWBC_FOR(k, 3) {
+    T acc = S.cw[0][k] * cb(0)[CB_WM];
+    for (int bb = 1; bb < NB; ++bb) acc += S.cw[bb][k] * cb(bb)[CB_WM];
+    S.com[k] = acc;
+    S.dcom[k] = acc - S.p[0][k];
+    out(O_COM)[sb * 3 + k] = acc;
+    out(O_POSE)[sb * 6 + k] = acc;
+    out(O_POSE)[sb * 6 + 3 + k] = S.rpy[k];
+  }
+  QWBC_SYNC();
+
+  // ---- stage: centre-of-mass velocity, Iw axw, body forces / moments ----
+  QWBC_FOR(k, 3) {
+    const T* om = S.u18 + 3;
+    T acc = T(0);
+    for (int bb = 0; bb < NB; ++bb) {
+      T vb = S.u18[k] + cross_k(om, S.r[bb], k);
+      for (int j = 0; j < NJ; ++j)
+        if (moves(bb, j)) vb += S.u18[6 + j] * S.jq[bb][j][k];
+      acc += vb * cb(bb)[CB_WM];
+    }
+    S.cvel[k] = acc;
+    S.cvel[3 + k] = om[k];
+  }
+  QWBC_FOR(i, NB * NJ) {
+    const int bb = i / NJ, j = i % NJ;
+    const bool mv = moves(bb, j);
+    for (int k = 0; k < 3; ++k)
+      S.Iwa[bb][j][k] = mv ? mv3_row(S.Iw[bb], k, S.axw[j]) : T(0);
+  }
+  QWBC_FOR(bb, NB) {
+    T dcb[3], t1[3], t2[3], t3[3], Iw_w[3];
+    for (int k = 0; k < 3; ++k) dcb[k] = S.cw[bb][k] - S.p[bb][k];
+    cross3(S.al[bb], dcb, t1);
+    cross3(S.w[bb], dcb, t2);
+    cross3(S.w[bb], t2, t3);
+    for (int k = 0; k < 3; ++k) Iw_w[k] = mv3_row(S.Iw[bb], k, S.w[bb]);
+    cross3(S.w[bb], Iw_w, t2);
+    const T mass = cb(bb)[CB_MASS];
+    for (int k = 0; k < 3; ++k) {
+      S.F[bb][k] = (S.ao[bb][k] + t1[k] + t3[k]) * mass;
+      S.Nb[bb][k] = mv3_row(S.Iw[bb], k, S.al[bb]) + t2[k];
+    }
+  }
+  QWBC_SYNC();
+
+  // ---- stage: Coriolis bias, mass-matrix blocks, carried d(T^-1)/dt u ----
+  QWBC_FOR(i, NV) {
+    T acc = T(0);
+    if (i < 3) {
+      for (int bb = 0; bb < NB; ++bb) acc += S.F[bb][i];
+    } else if (i < 6) {
+      for (int bb = 0; bb < NB; ++bb)
+        acc += cross_k(S.r[bb], S.F[bb], i - 3) + S.Nb[bb][i - 3];
+    } else {
+      const int j = i - 6;
+      for (int bb = 1; bb < NB; ++bb)
+        if (moves(bb, j))
+          acc += dot3(S.jq[bb][j], S.F[bb]) + dot3(S.axw[j], S.Nb[bb]);
+    }
+    S.hcor[i] = acc;
+  }
+  QWBC_FOR(k, 3) {
+    T acc = T(0);
+    for (int bb = 0; bb < NB; ++bb) acc += S.r[bb][k] * cb(bb)[CB_MASS];
+    S.mr[k] = acc;
+  }
+  QWBC_FOR(i, 9) {        // sum m (|r|^2 I - r r^T) + sum Iw
+    const int row = i / 3, col = i % 3;
+    T acc = T(0), dg = T(0);
+    for (int bb = 0; bb < NB; ++bb) {
+      const T mass = cb(bb)[CB_MASS];
+      acc += S.Iw[bb][i] - S.r[bb][row] * S.r[bb][col] * mass;
+      dg += dot3(S.r[bb], S.r[bb]) * mass;
+    }
+    S.rot[i] = (row == col) ? acc + dg : acc;
+  }
+  QWBC_FOR(i, 6 * NJ) {
+    const int row = i / NJ, j = i % NJ;
+    T acc = T(0);
+    for (int bb = 1; bb < NB; ++bb) {
+      if (!moves(bb, j)) continue;
+      const T mass = cb(bb)[CB_MASS];
+      if (row < 3)
+        acc += S.jq[bb][j][row] * mass;
+      else
+        acc += cross_k(S.r[bb], S.jq[bb][j], row - 3) * mass + S.Iwa[bb][j][row - 3];
+    }
+    S.Mbj[row][j] = acc;
+  }
+  QWBC_FOR(i, NJ * NJ) {
+    const int j = i / NJ, k = i % NJ;
+    T acc = T(0);
+    for (int bb = 1; bb < NB; ++bb)
+      if (moves(bb, j) && moves(bb, k))
+        acc += dot3(S.jq[bb][j], S.jq[bb][k]) * cb(bb)[CB_MASS]
+               + dot3(S.axw[j], S.Iwa[bb][k]);
+    S.Mjj[j][k] = acc;
+  }
+  QWBC_FOR(i, 6) {        // the bias reads the CARRIED d(T^-1)/dt (one cycle stale)
+    const T* row = in(I_TDINV) + sb * NV * NV + i * NV;
+    T acc = T(0);
+    for (int c = 0; c < NV; ++c) acc += row[c] * S.u18[c];
+    S.tdu[i] = acc;
+  }
+  QWBC_SYNC();
+
+  // ---- stage: Mb and its inverse by the 3x3 Schur complement of m I ----
+  QWBC_FOR(one, 1) {
+    const T m_tot = sc[SC_MTOT], inv_m = sc[SC_INV_M];
+    T sk[9], skT[9], S3[9], S3i[9], WS[9], TL[9], t[9];
+    skew3(S.mr, sk);
+    for (int i = 0; i < 3; ++i)
+      for (int l = 0; l < 3; ++l) skT[3 * i + l] = sk[3 * l + i];
+    for (int i = 0; i < 3; ++i)
+      for (int l = 0; l < 3; ++l) {
+        S.Mb[i][l] = (i == l) ? m_tot : T(0);
+        S.Mb[i][3 + l] = -sk[3 * i + l];
+        S.Mb[3 + i][l] = sk[3 * i + l];
+        S.Mb[3 + i][3 + l] = S.rot[3 * i + l];
+      }
+    mm3(sk, sk, t);
+    for (int k = 0; k < 9; ++k) S3[k] = S.rot[k] + t[k] * inv_m;
+    inv3(S3, S3i);
+    mm3(sk, S3i, t);
+    for (int k = 0; k < 9; ++k) WS[k] = t[k] * (-inv_m);
+    mm3(WS, skT, t);
+    for (int k = 0; k < 9; ++k) TL[k] = t[k] * (-inv_m);
+    for (int k = 0; k < 3; ++k) TL[4 * k] += m_tot * sc[SC_INV_M2];
+    for (int i = 0; i < 3; ++i)
+      for (int l = 0; l < 3; ++l) {
+        S.Mbi[i][l] = TL[3 * i + l];
+        S.Mbi[i][3 + l] = -WS[3 * i + l];
+        S.Mbi[3 + i][l] = -WS[3 * l + i];
+        S.Mbi[3 + i][3 + l] = S3i[3 * i + l];
+      }
+  }
+  QWBC_SYNC();
+
+  // ---- stages: X = Mb^-1 Mbj with one refinement pass ----
+  QWBC_FOR(i, 6 * NJ) {
+    const int p = i / NJ, j = i % NJ;
+    T acc = T(0);
+    for (int k = 0; k < 6; ++k) acc += S.Mbi[p][k] * S.Mbj[k][j];
+    S.X0[p][j] = acc;
+  }
+  QWBC_SYNC();
+  QWBC_FOR(i, 6 * NJ) {
+    const int p = i / NJ, j = i % NJ;
+    T acc = T(0);
+    for (int k = 0; k < 6; ++k) acc += S.Mb[p][k] * S.X0[k][j];
+    S.Xr[p][j] = S.Mbj[p][j] - acc;
+  }
+  QWBC_SYNC();
+  QWBC_FOR(i, 6 * NJ) {
+    const int p = i / NJ, j = i % NJ;
+    T acc = T(0);
+    for (int k = 0; k < 6; ++k) acc += S.Mbi[p][k] * S.Xr[k][j];
+    S.X[p][j] = S.X0[p][j] + acc;
+  }
+  QWBC_SYNC();
+
+  // ---- stage: Mb X, centroidal base block, T top rows, bias before the
+  // projection, foot kinematics and centroidal foot Jacobians ----
+  QWBC_FOR(i, 6 * NJ) {
+    const int p = i / NJ, j = i % NJ;
+    T acc = T(0);
+    for (int k = 0; k < 6; ++k) acc += S.Mb[p][k] * S.X[k][j];
+    S.MbX[p][j] = acc;
+  }
+  QWBC_FOR(i, 36) {       // Mc_base = adj^T (Mb adj), adj = [[I, skew(dcom)], [0, I]]
+    const int p = i / 6, c = i % 6;
+    T v = adj_right(S.Mb[p], S.dcom, c);
+    if (p >= 3) {
+      const T top[3] = {adj_right(S.Mb[0], S.dcom, c), adj_right(S.Mb[1], S.dcom, c),
+                        adj_right(S.Mb[2], S.dcom, c)};
+      v -= cross_k(S.dcom, top, p - 3);
+    }
+    S.Mcb[p][c] = v;
+  }
+  QWBC_FOR(i, 6 * NV) {   // T top rows = [adj^-1 | adj^-1 X]
+    const int p = i / NV, c = i % NV;
+    T v;
+    if (c < 6) {
+      v = (c == p) ? T(1) : T(0);
+      if (p < 3 && c >= 3 && c - 3 != p) {
+        // -skew(dcom)[p][c-3]
+        const int q = c - 3, k = 3 - p - q;
+        v = ((q - p + 3) % 3 == 1) ? S.dcom[k] : -S.dcom[k];
+      }
+    } else {
+      const int j = c - 6;
+      v = S.X[p][j];
+      if (p < 3) {
+        const T xb[3] = {S.X[3][j], S.X[4][j], S.X[5][j]};
+        v -= cross_k(S.dcom, xb, p);
+      }
+    }
+    S.Ttop[p][c] = v;
+  }
+  QWBC_FOR(i, NV) {       // h_cor + M (d(T^-1)/dt u)
+    T acc = T(0);
+    if (i < 6)
+      for (int k = 0; k < 6; ++k) acc += S.Mb[i][k] * S.tdu[k];
+    else
+      for (int k = 0; k < 6; ++k) acc += S.Mbj[k][i - 6] * S.tdu[k];
+    S.hMT[i] = S.hcor[i] + acc;
+  }
+  QWBC_FOR(i, NL * NV) {
+    const int f = i / NV, c = i % NV, fb = foot_body[f];
+    const T* fp = mc + MC_FOOT + 3 * f;
+    T pf[3];
+    for (int k = 0; k < 3; ++k) pf[k] = S.p[fb][k] + mv3_row(S.R[fb], k, fp);
+    if (c < 3) {
+      // foot position and velocity ride on the first three items
+      const T rel[3] = {pf[0] - S.p[0][0], pf[1] - S.p[0][1], pf[2] - S.p[0][2]};
+      T vf = S.u18[c] + cross_k(S.u18 + 3, rel, c);
+      for (int j = 0; j < NJ; ++j)
+        if (moves(fb, j)) {
+          const T dl[3] = {pf[0] - S.p[j + 1][0], pf[1] - S.p[j + 1][1],
+                           pf[2] - S.p[j + 1][2]};
+          vf += S.u18[6 + j] * cross_k(S.axw[j], dl, c);
+        }
+      S.fpos[3 * f + c] = pf[c];
+      S.fvel[3 * f + c] = vf;
+      out(O_FPOS)[sb * 12 + 3 * f + c] = pf[c];
+      for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = (k == c) ? T(1) : T(0);
+    } else if (c < 6) {   // -skew(p_f - com), column c - 3
+      const int q = c - 3;
+      const T rc[3] = {pf[0] - S.com[0], pf[1] - S.com[1], pf[2] - S.com[2]};
+      T nsk[9];
+      skew3(rc, nsk);
+      for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = -nsk[3 * k + q];
+    } else {              // joint part: jq_f - [I | -skew(p_f - p_0)] X
+      const int j = c - 6;
+      const T rel[3] = {pf[0] - S.p[0][0], pf[1] - S.p[0][1], pf[2] - S.p[0][2]};
+      const T xb[3] = {S.X[3][j], S.X[4][j], S.X[5][j]};
+      T col[3];
+      for (int k = 0; k < 3; ++k) col[k] = -(S.X[k][j] - cross_k(rel, xb, k));
+      if (moves(fb, j)) {
+        const T dl[3] = {pf[0] - S.p[j + 1][0], pf[1] - S.p[j + 1][1],
+                         pf[2] - S.p[j + 1][2]};
+        for (int k = 0; k < 3; ++k) col[k] += cross_k(S.axw[j], dl, k);
+      }
+      for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = col[k];
+    }
+  }
+  QWBC_SYNC();
+
+  // ---- stage: centroidal joint block, centroidal bias, finite differences
+  // of T and of the masked foot Jacobians with their rows of A, l, u, the
+  // desired wrench ----
+  QWBC_FOR(i, NJ * NJ) {
+    const int r = i / NJ, j = i % NJ;
+    T s1 = T(0), s2 = T(0), s3 = T(0);
+    for (int k = 0; k < 6; ++k) {
+      s1 += S.Mbj[k][r] * S.X[k][j];
+      s2 += S.X[k][r] * S.Mbj[k][j];
+      s3 += S.X[k][r] * S.MbX[k][j];
+    }
+    const T v = S.Mjj[r][j] - s1 - s2 + s3;
+    S.A[34 + r][6 + j] = v;
+    out(O_MCJJ)[sb * NJ * NJ + i] = v;
+  }
+  QWBC_FOR(i, NV) {
+    T v = S.hMT[i];
+    if (i >= 3 && i < 6) {
+      v -= cross_k(S.dcom, S.hMT, i - 3);
+    } else if (i >= 6) {
+      T acc = T(0);
+      for (int k = 0; k < 6; ++k) acc += S.X[k][i - 6] * S.hMT[k];
+      v -= acc;
+    }
+    S.hc[i] = v;
+    out(O_HC)[sb * NV + i] = v;
+  }
+  QWBC_FOR(i, NV * NV) {  // the new T (bottom rows [0 I]) and its difference
+    const int p = i / NV, c = i % NV;
+    T v = (p == c) ? T(1) : T(0);
+    if (p < 6) {
+      v = S.Ttop[p][c];
+      S.Td[p][c] = S.gate * (v - in(I_OLD_T)[sb * NV * NV + i]) * sc[SC_INV_DT];
+    }
+    out(O_T)[sb * NV * NV + i] = v;
+  }
+  QWBC_FOR(i, 2 * 12) {
+    // one row of J_st (kind 0) or J_sw (kind 1): mask, store, difference
+    // against the carried row, and the row's right-hand side
+    const int kind = i / 12, row = i % 12, f = row / 3, k = row % 3;
+    const T scale = kind == 0 ? S.con[f] : T(1) - S.con[f];
+    const T* old = in(kind == 0 ? I_OLD_JST : I_OLD_JSW) + sb * 12 * NV + row * NV;
+    T* keep = out(kind == 0 ? O_JST : O_JSW) + sb * 12 * NV + row * NV;
+    T acc = T(0);
+    for (int c = 0; c < NV; ++c) {
+      const T v = S.Jcf[f][k][c] * scale;
+      keep[c] = v;
+      if (kind == 0) {
+        S.A[6 + row][c] = v;
+      } else {
+        S.A[46 + row][c] = v;
+        S.A[58 + row][c] = v;
+      }
+      const T jd = S.gate * (v - old[c]) * sc[SC_INV_DT];
+      acc += jd * (c < 6 ? S.cvel[c] : S.u18[c]);
+    }
+    if (kind == 0) {
+      const T rhs = -acc;                 // one value, stored to both sides
+      S.l[6 + row] = rhs;
+      S.u[6 + row] = rhs;
+    } else {
+      T a_cmd = S.sacc[row] + sc[SC_KD_SWING] * (S.svel[row] - S.fvel[row])
+                + sc[SC_KP_SWING] * (S.spos[row] - S.fpos[row]);
+      a_cmd = a_cmd * (T(1) - S.con[f]);
+      const T rhs = a_cmd - acc;
+      S.u[46 + row] = rhs;
+      S.l[46 + row] = -sc[SC_INF];
+      S.l[58 + row] = rhs;
+      S.u[58 + row] = sc[SC_INF];
+    }
+  }
+  QWBC_FOR(i, 6) {
+    const T pose = (i < 3) ? S.com[i] : S.rpy[i - 3];
+    const T err = pose - S.rpose[i];
+    T acc = T(0);
+    for (int k = 0; k < 6; ++k) acc += S.Mcb[i][k] * S.racc[k];
+    const T grav = (i == 2) ? sc[SC_MG] : T(0);
+    S.wdes[i] = -sc[SC_KP + i] * err - sc[SC_KD] * (S.cvel[i] - S.rvel[i])
+                - sc[SC_KI] * S.integ[i] + grav + acc;
+    out(O_INTEG)[sb * 6 + i] = S.integ[i] + err * sc[SC_DT];
+    const T eq = -grav;                   // one value, stored to both sides
+    S.l[i] = eq;
+    S.u[i] = eq;
+  }
+  QWBC_SYNC();
+
+  // ---- stage: the rest of A, H, g, l, u; d(T^-1)/dt, first half ----
+  QWBC_FOR(i, 36) S.A[i / 6][i % 6] = S.Mcb[i / 6][i % 6];
+  QWBC_FOR(i, 6 * 12) {   // -J_st,com^T
+    const int p = i / 12, r = i % 12;
+    S.A[p][18 + r] = -S.A[6 + r][p];
+  }
+  QWBC_FOR(i, 12 * 12) {  // -J_st,j^T, and J_st,j for the torque map
+    const int p = i / 12, r = i % 12;
+    S.A[34 + p][18 + r] = -S.A[6 + r][6 + p];
+    out(O_JSTJ)[sb * 144 + i] = S.A[6 + p][6 + r];
+  }
+  QWBC_FOR(i, 16) {       // friction pyramid, contact-masked
+    const int f = i / 4, k = i % 4;
+    const T c = S.con[f], mu = sc[SC_MU];
+    T* row = &S.A[18 + i][18 + 3 * f];
+    row[0] = (k == 0) ? c : (k == 1) ? -c : T(0);
+    row[1] = (k == 2) ? c : (k == 3) ? -c : T(0);
+    row[2] = -mu * c;
+    S.u[18 + i] = T(0);
+    S.l[18 + i] = -sc[SC_INF];
+  }
+  QWBC_FOR(i, 12) {
+    S.A[46 + i][30 + i] = T(-1);
+    S.A[58 + i][30 + i] = T(1);
+    S.u[34 + i] = sc[SC_TAU_MAX] - S.hc[6 + i];
+    S.l[34 + i] = -sc[SC_TAU_MAX] - S.hc[6 + i];
+  }
+  QWBC_FOR(i, 12 * 12) {  // H block = J_st,com J_st,com^T + I
+    const int p = i / 12, r = i % 12;
+    T acc = T(0);
+    for (int k = 0; k < 6; ++k) acc += S.A[6 + p][k] * S.A[6 + r][k];
+    S.H[18 + p][18 + r] = (p == r) ? acc + T(1) : acc;
+  }
+  QWBC_FOR(i, NQ) {
+    T gv = T(0);
+    if (i >= 18 && i < 30) {
+      for (int k = 0; k < 6; ++k) gv += S.A[6 + i - 18][k] * S.wdes[k];
+      gv = -gv;
+    } else {
+      S.H[i][i] = (i < 18) ? T(1) : sc[SC_SLACK_W];
+    }
+    S.g[i] = gv;
+  }
+  QWBC_FOR(c, NV) {       // adj applied to the columns of dT/dt
+    for (int p = 0; p < 6; ++p) S.adjD[p][c] = S.Td[p][c];
+    const T bot[3] = {S.Td[3][c], S.Td[4][c], S.Td[5][c]};
+    for (int p = 0; p < 3; ++p) S.adjD[p][c] += cross_k(S.dcom, bot, p);
+  }
+  QWBC_SYNC();
+
+  // ---- stage: d(T^-1)/dt = -[adj D1 adj | adj (D2 - D1 X)], the unscaled
+  // problem to device memory ----
+  QWBC_FOR(i, NV * NV) {
+    const int p = i / NV, c = i % NV;
+    T v = T(0);
+    if (p < 6) {
+      if (c < 6) {
+        v = -adj_right(S.adjD[p], S.dcom, c);
+      } else {
+        T acc = T(0);
+        for (int k = 0; k < 6; ++k) acc += S.adjD[p][k] * S.X[k][c - 6];
+        v = -(S.adjD[p][c] - acc);
+      }
+    }
+    out(O_TDINV)[sb * NV * NV + i] = v;
+  }
+  QWBC_FOR(i, MQ * NQ) out(O_A)[sb * MQ * NQ + i] = S.A[i / NQ][i % NQ];
+  QWBC_FOR(i, NQ * NQ) out(O_H)[sb * NQ * NQ + i] = S.H[i / NQ][i % NQ];
+  QWBC_FOR(i, NQ) out(O_G)[sb * NQ + i] = S.g[i];
+  QWBC_FOR(i, MQ) {
+    out(O_L)[sb * MQ + i] = S.l[i];
+    out(O_U)[sb * MQ + i] = S.u[i];
+  }
+
+  // ---- the fused prepare tail, on the A and H just assembled ----
+  if (fused)
+    prepare_tail(&S.H[0][0], &S.A[0][0], SN, S.d[0], S.e[0], S.d[1], S.e[1],
+                 S.g, S.l, S.u, in(I_WX) + sb * NQ, in(I_WZ) + sb * MQ,
+                 in(I_WY) + sb * MQ, S.dropd != 0,
+                 out(O_SH) + sb * NQ * NQ, out(O_SA) + sb * MQ * NQ,
+                 out(O_SG) + sb * NQ, out(O_SL) + sb * MQ, out(O_SU) + sb * MQ,
+                 out(O_RHO) + sb * MQ, out(O_WXS) + sb * NQ, out(O_WZS) + sb * MQ,
+                 out(O_WYS) + sb * MQ, out(O_D) + sb * NQ, out(O_E) + sb * MQ,
+                 NQ, MQ, sweeps, rho0, rho_eq);
+}
+
+#ifdef __CUDACC__
+
+template <typename T>
+__global__ void setup_kernel(SetupPtrs a, int refnew_stride, int fused,
+                             int sweeps, T rho0, T rho_eq) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  setup_block<T>(a, blockIdx.x, refnew_stride, fused, sweeps, rho0, rho_eq,
+                 *reinterpret_cast<SetupShared<T>*>(smem_raw));
+}
+
+template <typename T>
+int launch_setup(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
+                 int B, int refnew_stride, int fused, int sweeps, T rho0,
+                 T rho_eq, void* stream) {
+  if (n_ptrs != N_PTRS || mc_len != MC_SIZE || topo_len != TP_SIZE)
+    return (int)cudaErrorInvalidValue;
+  SetupPtrs a;
+  for (int k = 0; k < N_PTRS; ++k) a.p[k] = const_cast<void*>(ptrs[k]);
+  const size_t smem = sizeof(SetupShared<T>);
+  if (int err = allow_shared_memory(setup_kernel<T>, smem)) return err;
+  setup_kernel<T><<<B, 128, smem, (cudaStream_t)stream>>>(
+      a, refnew_stride, fused, sweeps, rho0, rho_eq);
+  return (int)cudaGetLastError();
+}
+
+#else  // plain C++: one thread runs the blocks one after the other
+
+template <typename T>
+int launch_setup(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
+                 int B, int refnew_stride, int fused, int sweeps, T rho0,
+                 T rho_eq, void*) {
+  if (n_ptrs != N_PTRS || mc_len != MC_SIZE || topo_len != TP_SIZE) return 1;
+  SetupPtrs a;
+  for (int k = 0; k < N_PTRS; ++k) a.p[k] = const_cast<void*>(ptrs[k]);
+  SetupShared<T>* S = new SetupShared<T>;
+  for (int b = 0; b < B; ++b)
+    setup_block<T>(a, b, refnew_stride, fused, sweeps, rho0, rho_eq, *S);
+  delete S;
+  return 0;
+}
+
+#endif
+
+}  // namespace qwbc
+
+extern "C" {
+
+#ifndef __CUDACC__
+int qwbc_host_reverse = 0;
+#endif
+
+int qwbc_setup_f32(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
+                   int B, int refnew_stride, int fused, int sweeps, float rho0,
+                   float rho_eq, void* stream) {
+  return qwbc::launch_setup<float>(ptrs, n_ptrs, mc_len, topo_len, B,
+                                   refnew_stride, fused, sweeps, rho0, rho_eq,
+                                   stream);
+}
+
+int qwbc_setup_f64(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
+                   int B, int refnew_stride, int fused, int sweeps, double rho0,
+                   double rho_eq, void* stream) {
+  return qwbc::launch_setup<double>(ptrs, n_ptrs, mc_len, topo_len, B,
+                                    refnew_stride, fused, sweeps, rho0, rho_eq,
+                                    stream);
+}
+
+}  // extern "C"

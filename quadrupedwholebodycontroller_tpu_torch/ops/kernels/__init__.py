@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the solver and their PyTorch wrappers.
+"""Hand-written Hopper kernels of the control step and their PyTorch wrappers.
 
 Each module holds one wrapper, the plain PyTorch version of the same
 function (`*_plain`, taken only for tensors that lie on the CPU) and two
@@ -11,12 +11,14 @@ from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (
     admm_zy,
     polish,
     prepare,
+    setup,
 )
 
 KERNEL_MODULES = {
     "prepare_scaled": prepare,
     "admm_zy_iterations_res": admm_zy,
     "polish_solve_compact": polish,
+    "setup_batched": setup,
 }
 
 

@@ -19,14 +19,19 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("prepare.cu", "admm_zy.cu", "polish.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("prepare.cu", "admm_zy.cu", "polish.cu", "setup.cu")
+HEADERS = ("common.cuh", "prepare_tail.cuh")
+# sources written with the stage macros of common.cuh alone, which also
+# compile as plain C++ (see `host_lib`)
+HOST_SOURCES = ("setup.cu",)
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
+_host_lib = None
 build_seconds = None   # wall time of the build this process ran, if any
 build_log = ""         # what nvcc printed (register / shared-memory use)
 
@@ -49,9 +54,9 @@ def _nvcc() -> str:
     )
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def _source_hash(flags=NVCC_FLAGS, sources=SOURCES) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sources + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode())
             h.update(f.read())
@@ -108,8 +113,18 @@ def _declare(lib) -> None:
         fn = getattr(lib, f"qwbc_polish_{suffix}")
         fn.argtypes = [_PTR] * 17 + [i, i, i, i, i, i, real, _PTR]
         fn.restype = i
+        _declare_setup(lib, suffix, real)
     lib.qwbc_error_string.argtypes = [i]
     lib.qwbc_error_string.restype = ctypes.c_char_p
+
+
+def _declare_setup(lib, suffix, real) -> None:
+    i = ctypes.c_int
+    fn = getattr(lib, f"qwbc_setup_{suffix}")
+    # pointer table, its length, the constant tables' lengths, B, the stride
+    # of ref_is_new, fused, sweeps, rho0, rho_eq, stream
+    fn.argtypes = [ctypes.POINTER(_PTR), i, i, i, i, i, i, i, real, real, _PTR]
+    fn.restype = i
 
 
 def lib():
@@ -123,6 +138,36 @@ def lib():
         _declare(loaded)
         _lib = loaded
     return _lib
+
+
+def host_lib():
+    """`HOST_SOURCES` compiled as plain C++ by the host's compiler, where a
+    block is one thread that runs each stage's items in turn: the kernels'
+    own arithmetic, checked without a GPU (tests only; nothing on a
+    device path calls it).  Raises if there is no C++ compiler."""
+    global _host_lib
+    if _host_lib is None:
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError("no C++ compiler (looked for g++, c++)")
+        path = os.path.join(
+            build_dir(), f"libqwbc_host_{_source_hash(HOST_FLAGS, HOST_SOURCES)}.so")
+        if not os.path.exists(path):
+            os.makedirs(build_dir(), exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+                tmp_lib = os.path.join(tmp, "lib.so")
+                run = subprocess.run(
+                    [cxx, *HOST_FLAGS, "-I", CSRC_DIR, "-o", tmp_lib,
+                     *(os.path.join(CSRC_DIR, n) for n in HOST_SOURCES)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                if run.returncode != 0:
+                    raise RuntimeError(f"{cxx} failed:\n{run.stdout}")
+                os.replace(tmp_lib, path)
+        loaded = ctypes.CDLL(path)
+        for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            _declare_setup(loaded, suffix, real)
+        _host_lib = loaded
+    return _host_lib
 
 
 def launch(name: str, dtype_suffix: str, *args) -> None:
@@ -141,9 +186,10 @@ def launch(name: str, dtype_suffix: str, *args) -> None:
         )
 
 
-def check_inputs(ref, named_shapes: dict) -> str:
+def check_inputs(ref, named_shapes: dict, device_type: str = "cuda") -> str:
     """Raise unless every tensor is a contiguous CUDA tensor of ref's device
-    and dtype with the stated shape; returns the launcher's dtype suffix."""
+    and dtype with the stated shape; returns the launcher's dtype suffix.
+    (`device_type="cpu"`: the same check for `host_lib`.)"""
     import torch
 
     if ref.dtype == torch.float32:
@@ -153,7 +199,7 @@ def check_inputs(ref, named_shapes: dict) -> str:
     else:
         raise TypeError(f"kernels take float32 or float64, got {ref.dtype}")
     for name, (t, shape) in named_shapes.items():
-        if t.device != ref.device or t.device.type != "cuda":
+        if t.device != ref.device or t.device.type != device_type:
             raise ValueError(f"{name}: on {t.device}, expected {ref.device}")
         if t.dtype != ref.dtype:
             raise TypeError(f"{name}: {t.dtype}, expected {ref.dtype}")

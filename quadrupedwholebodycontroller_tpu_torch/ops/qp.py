@@ -400,6 +400,7 @@ def solve_batched(
     cache: "QPCache | None" = None,
     use_warm=None,
     hinv_fn=None,
+    prepared=None,
 ):
     """Batched solve; returns (state, info, new_cache).  Runs under
     `torch.no_grad()`: this is the serving path, no gradient flows.
@@ -412,16 +413,22 @@ def solve_batched(
     inverse.  Pass False on the first cycle.
 
     hinv_fn: callable (H (B, n, n), reg) -> COMPACT block-diagonal inverse
-    (diag (B, n), blk (B, k, k), start) of the regularized polish Hessian."""
+    (diag (B, n), blk (B, k, k), start) of the regularized polish Hessian.
+
+    prepared: the 11 tensors of `prepare.prepare_scaled` for this `data` and
+    `warm`, already computed (the fused setup kernel's tail): the prepare
+    stage is skipped and they are taken as they are."""
     _check_supported(params, backend, cache, hinv_fn)
     B, m, n = data.A.shape
     dtype, dev = data.H.dtype, data.H.device
 
-    sH, sA, sg, sl, su, rho, wxs, wzs, wys, dscale, escale = prepare.prepare_scaled(
-        data.H, data.A, data.g, data.l, data.u, warm.x, warm.z, warm.y,
-        sweeps=params.scaling_iters, rho0=params.rho,
-        rho_eq_scale=params.rho_eq_scale,
-    )
+    if prepared is None:
+        prepared = prepare.prepare_scaled(
+            data.H, data.A, data.g, data.l, data.u, warm.x, warm.z, warm.y,
+            sweeps=params.scaling_iters, rho0=params.rho,
+            rho_eq_scale=params.rho_eq_scale,
+        )
+    sH, sA, sg, sl, su, rho, wxs, wzs, wys, dscale, escale = prepared
     K = sH + (sA.transpose(-1, -2) * rho[:, None, :]) @ sA
 
     # ---- warm-cache gate ----

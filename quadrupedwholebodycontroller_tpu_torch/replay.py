@@ -45,12 +45,14 @@ def step_inputs(traj, t: int, batch: int, dtype, offsets=None, device="cuda"):
 
 
 def replay(model, traj, steps, batch: int, qpp: QPSolverParams, offsets=None,
-           on_step=None, timed: bool = False):
+           on_step=None, timed: bool = False, setup_backend: str = "auto"):
     """Drive `wbc_step_batched` over the recorded steps `steps` (an iterable
     of step indices) from `init_carry` and an invalid cache, on the model's
     device and dtype.  `on_step(t, out, ms)` sees every step's output; with
     `timed` the device is synchronised around each step and `ms` is the
-    step's host time, else `ms` is None.  Returns the final (carry, cache)."""
+    step's host time, else `ms` is None.  `setup_backend` is the step's
+    ("auto": the fused setup kernel; "torch": the tensor-code setup).
+    Returns the final (carry, cache)."""
     dtype, device = model.mass.dtype, model.mass.device
     cp = ControllerParams()
     carry = wbc.init_carry(batch, dtype, device)
@@ -62,7 +64,8 @@ def replay(model, traj, steps, batch: int, qpp: QPSolverParams, offsets=None,
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
         out, carry, cache = wbc.wbc_step_batched(
-            model, cp, qpp, obs, ref, carry, new, "kernel", cache, valid)
+            model, cp, qpp, obs, ref, carry, new, "kernel", cache, valid,
+            setup_backend=setup_backend)
         if timed:
             torch.cuda.synchronize(device)
             ms = (time.perf_counter() - t0) * 1e3

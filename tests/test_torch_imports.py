@@ -45,14 +45,27 @@ def test_port_has_the_expected_modules():
                  "ops/dynamics.py", "ops/centroidal.py", "ops/spatial.py",
                  "ops/kernels/build.py", "ops/kernels/prepare.py",
                  "ops/kernels/admm_zy.py", "ops/kernels/polish.py",
+                 "ops/kernels/setup.py", "replay.py",
                  "models/anymal.py", "models/robot_model.py"):
         assert want in rel, want
-    for src in ("common.cuh", "prepare.cu", "admm_zy.cu", "polish.cu"):
+    for src in ("common.cuh", "prepare_tail.cuh", "prepare.cu", "admm_zy.cu",
+                "polish.cu", "setup.cu"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
     assert os.path.exists(os.path.join(PORT, "models", "data", "anymal_d.json"))
 
 
-KERNEL_MODULES = ("prepare", "admm_zy", "polish")
+KERNEL_MODULES = ("prepare", "admm_zy", "polish", "setup")
+
+
+def test_prepare_and_setup_share_one_prepare_tail():
+    """The Ruiz sweeps and the scaling live in one device function that both
+    kernels call; neither source carries a copy."""
+    read = lambda f: open(os.path.join(PORT, "csrc", f)).read()
+    assert "void prepare_tail(" in read("prepare_tail.cuh")
+    for src in ("prepare.cu", "setup.cu"):
+        text = read(src)
+        assert '#include "prepare_tail.cuh"' in text and "prepare_tail(" in text
+        assert "s < sweeps" not in text and "rho_eq : rho0" not in text
 
 
 @pytest.mark.parametrize("name", KERNEL_MODULES)
@@ -87,8 +100,12 @@ def _cpu_problem(B=3, n=6, m=8, k=2, start=2, dtype=torch.float64):
 
 
 def test_cpu_tensors_take_the_plain_versions():
+    from quadrupedwholebodycontroller_tpu_torch.config import ControllerParams
+    from quadrupedwholebodycontroller_tpu_torch.control import wbc
+    from quadrupedwholebodycontroller_tpu_torch.models import anymal_d_model
     from quadrupedwholebodycontroller_tpu_torch.ops import kernels
-    from quadrupedwholebodycontroller_tpu_torch.ops.kernels import admm_zy, polish, prepare
+    from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (
+        admm_zy, polish, prepare, setup)
 
     kernels.reset_counts()
     H, A, g, l, u, wx, wz, wy = _cpu_problem()
@@ -106,10 +123,19 @@ def test_cpu_tensors_take_the_plain_versions():
     Sinv = torch.eye(m, dtype=H.dtype).expand(B, m, m).contiguous()
     polish.polish_solve((diag, blk, 2), (diag, blk, 2), Sinv, A, da, g, u, l, u,
                         refine=1, reg=1e-9)
+    obs = wbc.RobotObservation(
+        base_R=torch.eye(3, dtype=H.dtype).expand(2, 3, 3), base_p=torch.zeros(2, 3, dtype=H.dtype),
+        base_vel=torch.zeros(2, 6, dtype=H.dtype), q=torch.zeros(2, 12, dtype=H.dtype),
+        qd=torch.zeros(2, 12, dtype=H.dtype))
+    setup.setup_batched(anymal_d_model(H.dtype, "cpu"), ControllerParams(), obs,
+                        wbc.Reference.standing(ControllerParams(), 2, H.dtype, "cpu"),
+                        wbc.init_carry(2, H.dtype, "cpu"), True)
     assert kernels.plain_counts() == {
-        "prepare_scaled": 1, "admm_zy_iterations_res": 1, "polish_solve_compact": 1}
+        "prepare_scaled": 1, "admm_zy_iterations_res": 1, "polish_solve_compact": 1,
+        "setup_batched": 1}
     assert kernels.launch_counts() == {
-        "prepare_scaled": 0, "admm_zy_iterations_res": 0, "polish_solve_compact": 0}
+        "prepare_scaled": 0, "admm_zy_iterations_res": 0, "polish_solve_compact": 0,
+        "setup_batched": 0}
 
 
 def test_unported_options_raise():
@@ -130,8 +156,12 @@ def test_unported_options_raise():
     step = lambda qpp=QPSolverParams(), cp=ControllerParams(), **kw: wbc.wbc_step_batched(
         model, cp, qpp, obs, ref, carry, True, kw.pop("qp_backend", "kernel"),
         kw.pop("qp_cache", cache), False, **kw)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        step(setup_backend="kernel")
+    # the fused setup kernel is the default path; its exact mode is not ported
+    for backend in ("auto", "kernel", "torch"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            step(setup_backend=backend, cp=ControllerParams(exact_derivatives=True))
+    with pytest.raises(ValueError, match="setup_backend"):
+        step(setup_backend="pallas")
     for bad in (dict(sigma=1e-6), dict(comp_final_refine=1), dict(drop_warm_iters=4),
                 dict(ns_warm_iters_polish=1), dict(cond_hoist=1)):
         with pytest.raises(NotImplementedError):

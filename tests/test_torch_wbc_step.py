@@ -1,4 +1,7 @@
-"""The slice as a whole: the port's `wbc_step_batched` against the JAX step
+"""The slice as a whole: the port's `wbc_step_batched` (default arguments:
+the fused setup `setup_backend="kernel"`, whose plain version runs on the
+CPU, with the prepare stage handed to the solver as `prepared=`) against the
+JAX step
 `wbc_step_batched(..., "pallas", cache, valid, setup_backend="xla")` with
 `QPSolverParams(solve_layout="major")` (so the JAX cache is batch-major and
 the Pallas kernels run in interpret mode on the CPU), B = 4 perturbed
@@ -17,6 +20,11 @@ Tolerances:
     step keeps the ADMM iterate, whose float32 rounding differences are
     amplified by the solve (measured <= 7e-3 N.m); relative KKT <= 3e-3 on
     both sides at every step.
+
+The port's `setup_backend="torch"` path (tensor-code setup, then the
+prepare stage inside the solver) is replayed beside it from its own carry and
+cache and must give the kernel path's torques, carry and cache to 1e-9 in
+float64 (on the CPU both run the same arithmetic).
 
 One more float64 case shrinks the compaction caps (cold_batch=2,
 drop_batch=2, rescue_batch=2, rescue_round2_batch=1, rescue_threshold=1e-7)
@@ -96,6 +104,8 @@ def _run_case(name):
     jcache = jqp.make_cache(B, 42, 70, jq, jdt)
     tc = wbc.init_carry(B, tdt, "cpu")
     tcache = qp.make_cache(B, 42, 70, tq, tdt, "cpu")
+    oc, ocache = tc, tcache            # the setup_backend="torch" path beside it
+    torch_rows = []
 
     # record the sub-batch sizes the port's solver stages see
     seen = {"ns_inverse": set(), "polish": set(), "admm": set()}
@@ -138,6 +148,10 @@ def _run_case(name):
             jout, jc, jcache = jstep(jo, jr, jc, jnp.asarray(mask), jcache, valid)
             tout, tc, tcache = wbc.wbc_step_batched(
                 tm, tcp, tq, to, tr, tc, torch.as_tensor(mask), "kernel", tcache, valid)
+            oout, oc, ocache = wbc.wbc_step_batched(
+                tm, tcp, tq, to, tr, oc, torch.as_tensor(mask), "kernel", ocache, valid,
+                setup_backend="torch")
+            torch_rows.append(convert.to_numpy(oout))
             valid = True
             rows.append((t, jax.tree.map(np.asarray, jout), convert.to_numpy(tout)))
             if t == 42:
@@ -145,7 +159,8 @@ def _run_case(name):
     finally:
         qp.ns_inverse, polish.polish_solve, admm_zy.admm_zy_iterations_res = orig
     final = (jax.tree.map(np.asarray, (jc, jcache)), convert.to_numpy((tc, tcache)))
-    return dict(rows=rows, seen=seen, crossed=crossed, final=final, dtype=dtype)
+    return dict(rows=rows, seen=seen, crossed=crossed, final=final, dtype=dtype,
+                torch_rows=torch_rows, torch_final=convert.to_numpy((oc, ocache)))
 
 
 @pytest.fixture(scope="module")
@@ -174,6 +189,29 @@ def test_float64_step_matches_jax(results, name):
         assert np.array_equal(jout.qp_info.polished, tout.qp_info.polished), t
         for f in ("com_pos", "com_pose", "foot_pos"):
             assert _d(getattr(jout, f), getattr(tout, f)) <= 1e-9, (t, f)
+
+
+@pytest.mark.parametrize("name", ["f64_defaults", "f64_compact", "f32_defaults"])
+def test_kernel_setup_path_equals_torch_setup_path(results, name):
+    """`setup_backend="kernel"` (the default) against `"torch"` over the
+    contact switch: torques, QP solution, certificate, carry and cache."""
+    r = _case(results, name)
+    tol = 1e-9 if r["dtype"] == "float64" else 1e-6
+    for (t, _, kout), oout in zip(r["rows"], r["torch_rows"]):
+        for f in ("tau", "grf", "qp_x", "com_pos", "com_pose", "foot_pos"):
+            assert _d(getattr(kout, f), getattr(oout, f)) <= tol, (t, f)
+        assert _d(kout.qp_info.kkt_residual, oout.qp_info.kkt_residual) <= tol, t
+        assert np.array_equal(kout.qp_info.polished, oout.qp_info.polished), t
+    (_, (kc, kcache)), (oc, ocache) = r["final"], r["torch_final"]
+    for f in kc._fields:
+        if f == "qp_warm":
+            for k in "xzy":
+                assert _d(getattr(kc.qp_warm, k), getattr(oc.qp_warm, k)) <= tol, k
+        else:
+            assert _d(np.asarray(getattr(kc, f), np.float64),
+                      np.asarray(getattr(oc, f), np.float64)) <= tol, f
+    for f in kcache._fields:
+        assert _d(getattr(kcache, f), getattr(ocache, f)) <= tol, f
 
 
 @pytest.mark.parametrize("name", ["f64_defaults", "f64_compact"])

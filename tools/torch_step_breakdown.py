@@ -3,16 +3,19 @@
 
     python3 tools/torch_step_breakdown.py [--batch 4096] [--steps 40]
                                           [--rescue-threshold 1e-5]
+                                          [--setup-backend {both,kernel,torch}]
 
 Needs one CUDA card.  Replays recorded walking steps 30.. (the window holds
 the contact switch at step 40) through `wbc_step_batched` in float32 and
-prints JSON lines:
+prints, for each setup backend asked for (default: the fused setup kernel,
+then the tensor-code setup, in one process on one card), JSON lines:
 
   * stage times per step, measured with CUDA events around the stages of one
     step (setup, prepare kernel, K build + inverse, ADMM kernel, polish
-    rounds, rescue, torque map) by wrapping the port's functions,
-  * the device-busy share of the wall time and the kernels that take most
-    device time, from `torch.profiler`.
+    rounds, rescue, torque map) by wrapping the port's functions, and the
+    host syncs per step,
+  * the device-busy share of the wall time, the device launches per step and
+    the kernels that take most device time, from `torch.profiler`.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from quadrupedwholebodycontroller_tpu_torch.control import wbc  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.models import anymal_d_model  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops import qp  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import admm_zy, polish, prepare  # noqa: E402
+from quadrupedwholebodycontroller_tpu_torch.ops.kernels import setup as setup_k  # noqa: E402
 
 
 def main():
@@ -48,7 +52,9 @@ def main():
     ap.add_argument("--rescue-threshold", type=float, default=None,
                     help="override QPSolverParams.rescue_threshold "
                          "(1e-5 is the torque-parity certificate configuration)")
+    ap.add_argument("--setup-backend", choices=("both", "kernel", "torch"), default="both")
     args = ap.parse_args()
+    backends = ("kernel", "torch") if args.setup_backend == "both" else (args.setup_backend,)
     B, dt, dev = args.batch, torch.float32, "cuda"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -59,11 +65,17 @@ def main():
     qpp = QPSolverParams() if args.rescue_threshold is None else QPSolverParams(
         rescue_threshold=args.rescue_threshold)
 
+    for backend in backends:
+        breakdown(args, backend, model, traj, B, qpp, off, smi)
+
+
+def breakdown(args, backend, model, traj, B, qpp, off, smi):
     def run(n=args.steps):
         """Replays n steps; returns the summed host time of the steps (ms)."""
         ms = []
         replay.replay(model, traj, range(args.first, args.first + n), B, qpp, off,
-                      on_step=lambda t, out, step_ms: ms.append(step_ms), timed=True)
+                      on_step=lambda t, out, step_ms: ms.append(step_ms), timed=True,
+                      setup_backend=backend)
         return sum(ms)
 
     run(5)  # warm-up
@@ -82,7 +94,8 @@ def main():
         return wrapper
 
     patches = [
-        (wbc, "wbc_setup", "setup"), (wbc, "_finish_step", "torque_map"),
+        (wbc, "wbc_setup", "setup"), (setup_k, "setup_batched", "setup_kernel"),
+        (wbc, "_finish_step", "torque_map"),
         (prepare, "prepare_scaled", "prepare_kernel"),
         (admm_zy, "admm_zy_iterations_res", "admm_kernel"),
         (polish, "polish_solve", "polish_kernel"),
@@ -95,14 +108,17 @@ def main():
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, label in patches:
         setattr(m, n, timed(label, getattr(m, n)))
+    qp.HOST_SYNCS = 0
     wall_ms = run()
+    syncs = qp.HOST_SYNCS
     for m, n, f in saved:
         setattr(m, n, f)
     stage = {k: sum(a.elapsed_time(b) for a, b in v) / args.steps for k, v in spans.items()}
     calls = {k: len(v) / args.steps for k, v in spans.items()}
-    print(json.dumps({"card": smi, "batch": B, "steps": args.steps,
-                      "rescue_threshold": qpp.rescue_threshold,
+    print(json.dumps({"card": smi, "setup_backend": backend, "batch": B,
+                      "steps": args.steps, "rescue_threshold": qpp.rescue_threshold,
                       "wall_ms_per_step": wall_ms / args.steps,
+                      "host_syncs_per_step": syncs / args.steps,
                       "stage_ms_per_step": stage, "stage_calls_per_step": calls}), flush=True)
 
     # ---- device-busy share and top kernels ----
@@ -117,7 +133,8 @@ def main():
     busy_ms = sum(r[1] for r in rows) / 1e3
     rows.sort(key=lambda r: -r[1])
     print(json.dumps({
-        "card": smi, "profiled_wall_ms_per_step": wall_ms / args.steps,
+        "card": smi, "setup_backend": backend,
+        "profiled_wall_ms_per_step": wall_ms / args.steps,
         "device_busy_ms_per_step": busy_ms / args.steps,
         "device_busy_share_of_profiled_wall": busy_ms / wall_ms if wall_ms else None,
         "device_kernel_launches_per_step": sum(r[2] for r in rows) / args.steps,
