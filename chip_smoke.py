@@ -6,18 +6,26 @@
 Needs one CUDA card and `nvcc`; exits non-zero without them.  It
 
   1. builds the CUDA kernels from `quadrupedwholebodycontroller_tpu_torch/csrc`,
-  2. holds each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (B = 4096, n = 42, m = 70) on inputs from a recorded
-     walking step, each output to its own tolerance, in float32 and
-     float64, plus a ragged B = 37,
-  3. drives the two paths of the batched 400 Hz control cycle
+  2. holds each of the eight kernels against its plain PyTorch version on the
+     card, at the main path's shapes (B = 4096, n = 42, m = 70) on inputs
+     from a recorded walking step, each output to its own tolerance, in
+     float32 and float64, plus a ragged B = 37,
+  3. drives the paths of the batched 400 Hz control cycle
      (`control.wbc.wbc_step_batched`, B = 4096, float32) over the recorded
      walk, each with the launch counters zeroed before and read after: the
      main path (`setup_backend="kernel"`: fused setup kernel -> ADMM ->
-     polish) over all 200 steps, and the earlier path (`"torch"`: tensor-code
-     setup -> prepare kernel -> ADMM -> polish) over steps 0..69, which hold
-     a contact switch; then holds the two paths' torques against each other,
-  4. replays the unperturbed walk at B = 8 through the main path against the
+     polish) over all 200 steps, the earlier path (`"torch"`: tensor-code
+     setup -> prepare kernel -> ADMM -> polish) and the sigma path
+     (`QPSolverParams(sigma=1e-6)`: the x-space ADMM) over steps 0..69, which
+     hold a contact switch, each held against the main path's torques,
+  4. solves the walk's QPs of steps 30..69 through the generic solve
+     (`ops.qp.solve_batched` without a closed-form H^-1: the dense-H polish)
+     with a carried cache at sigma = 0 and 1e-6, against the main path's
+     solutions; takes one cold step without a cache; and drives the two
+     kernels that no path of the control step runs (the x-space ADMM loop
+     without its epilogue, the warm Newton-Schulz update) through their
+     entry points over the same QPs,
+  5. replays the unperturbed walk at B = 8 through the main path against the
      float64 torque record `data/torque_cpu64.npz`.
 
 Every line it prints is one JSON object; the last is
@@ -51,13 +59,18 @@ from quadrupedwholebodycontroller_tpu_torch.models import anymal_d_model  # noqa
 from quadrupedwholebodycontroller_tpu_torch.models.robot_model import RobotModel  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops import kernels, qp  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (  # noqa: E402
+    admm,
     admm_zy,
     build,
+    ns_warm,
     polish,
     prepare,
 )
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import setup as setup_k  # noqa: E402
-from quadrupedwholebodycontroller_tpu_torch.ops.linalg import ns_inverse  # noqa: E402
+from quadrupedwholebodycontroller_tpu_torch.ops.linalg import (  # noqa: E402
+    ns_inverse,
+    ns_inverse_warm_shared,
+)
 
 DEV = "cuda"
 N, M, KBLK = 42, 70, 12
@@ -119,6 +132,24 @@ TORQUE_F64 = np.load(os.path.join(ROOT, "data", "torque_cpu64.npz"))["tau"]
 #     share of the scale would hold nothing: held elementwise, 1e-5
 #     (measured 6e-7);
 #   * rho, the contacts and both flags are exact (tolerance 0).
+#
+# The kernels of the generic path, on the same step's inputs:
+#   * x-space ADMM (with and without its epilogue) at sigma = 1e-6: the
+#     constraint-space kernel's bounds, for the same reasons (40 chained
+#     iterations, rho = 500 on equality rows); its "resolving" case is the
+#     cold start with 3 iterations;
+#   * dense-H polish: the compact polish's bounds; H^-1 is the Newton-Schulz
+#     inverse of the regularized H that the generic path computes;
+#   * warm Newton-Schulz at n = 42 on the scaled ADMM matrix K (perturbed
+#     by 1e-3 per scenario, warm start the inverse of the unperturbed K) and
+#     at n = 70 on well-conditioned SPD matrices, in share of X's scale:
+#     1e-5 (an H100 measured 0: each entry is one multiply-add chain in k
+#     order, as in cuBLAS's product; a kernel that returned W unchanged is
+#     1e-3 off); three guarded cases, each in every scenario: a NaN warm
+#     start and a 1e9-scaled one (rejected: X0 iterated), and W = -500 A^-1
+#     of A scaled by 1e-20 (accepted, the iterate passes 1e30: X0 itself
+#     comes back), 1e-5 (measured 1.2e-6: X0's scalings are taken in
+#     another order).
 PREP_OUT = "sH sA sg sl su rho wxs wzs wys d e".split()
 ADMM_OUT = "x z y pr du sv".split()
 POLISH_OUT = "x y z pr du sv".split()
@@ -126,9 +157,12 @@ SETUP_RESULT = "H g A l u h_c Mc_jj Jc_st_j com current_pose foot_pos".split()
 SETUP_CARRY = ("old_T old_J_st old_J_sw tdot_inv integral_error prev_contacts "
                "switch_flag deriv_valid").split()
 SETUP_OUT = SETUP_RESULT + SETUP_CARRY + PREP_OUT   # the plain variant: no PREP_OUT
-K3 = "setup_batched"
-OUTPUTS = {"prepare_scaled": PREP_OUT, "admm_zy_iterations_res": ADMM_OUT,
-           "polish_solve_compact": POLISH_OUT, K3: SETUP_OUT}
+K1, K2, K3, K4 = ("admm_zy_iterations_res", "polish_solve_compact", "setup_batched",
+                  "prepare_scaled")
+K5, K6, K7, K8 = ("admm_iterations_res", "admm_iterations", "polish_solve_dense",
+                  "ns_inverse_warm")
+OUTPUTS = {K4: PREP_OUT, K1: ADMM_OUT, K2: POLISH_OUT, K3: SETUP_OUT,
+           K5: ADMM_OUT, K6: ADMM_OUT[:3], K7: POLISH_OUT, K8: ["X"]}
 FLOOR = None     # at the rounding floor: float64 guard + resolving case
 EXACT = (0.0, 0.0)
 ELEM = "elem"    # (ELEM, rtol): |kernel - plain| <= rtol |plain| on every entry
@@ -162,21 +196,37 @@ TOL_F32 = {
         "x": (1e-5, 0.0), "y": (1e-5, 0.0), "z": (1e-5, 0.0),
         "pr": (1e-3, 0.0), "du": (1e-4, 0.0), "sv": (1e-4, 0.0)},
 }
+TOL_F32.update({
+    (K5, "main"): TOL_F32[(K1, "main")],
+    (K5, "resolving"): TOL_F32[(K1, "resolving")],
+    (K6, "main"): {o: TOL_F32[(K1, "main")][o] for o in ADMM_OUT[:3]},
+    (K7, "main"): TOL_F32[(K2, "main")],
+    (K7, "resolving"): TOL_F32[(K2, "resolving")],
+    (K8, "main"): {"X": (1e-5, 0.0)},
+    (K8, "n70"): {"X": (1e-5, 0.0)},
+    (K8, "nan_warm"): {"X": (1e-5, 0.0)},
+    (K8, "far_warm"): {"X": (1e-5, 0.0)},
+    (K8, "blowup"): {"X": (1e-5, 0.0)},
+})
 TOL_F64 = (1e-9, 1e-10)
 GUARD, GUARD_ATOL = 3.0, 1e-6
 
+_JAX = "quadrupedwholebodycontroller_tpu/ops/pallas/"
 REPLACES = {
-    "prepare_scaled": "quadrupedwholebodycontroller_tpu/ops/pallas/prepare_kernel.py:74",
-    "admm_zy_iterations_res": "quadrupedwholebodycontroller_tpu/ops/pallas/qp_kernel.py:243",
-    "polish_solve_compact": "quadrupedwholebodycontroller_tpu/ops/pallas/polish_kernel.py:276",
-    K3: "quadrupedwholebodycontroller_tpu/ops/pallas/setup_kernel.py:1193",
+    K4: _JAX + "prepare_kernel.py:74",
+    K1: _JAX + "qp_kernel.py:243",
+    K2: _JAX + "polish_kernel.py:276",
+    K3: _JAX + "setup_kernel.py:1193",
+    K5: _JAX + "qp_kernel.py:438",
+    K6: _JAX + "qp_kernel.py:363",
+    K7: _JAX + "polish_kernel.py:134",
+    K8: _JAX + "ns_kernel.py:126",
 }
-SOURCES = {
-    "prepare_scaled": "quadrupedwholebodycontroller_tpu_torch/csrc/prepare.cu",
-    "admm_zy_iterations_res": "quadrupedwholebodycontroller_tpu_torch/csrc/admm_zy.cu",
-    "polish_solve_compact": "quadrupedwholebodycontroller_tpu_torch/csrc/polish.cu",
-    K3: "quadrupedwholebodycontroller_tpu_torch/csrc/setup.cu",
-}
+_CSRC = "quadrupedwholebodycontroller_tpu_torch/csrc/"
+SOURCES = {K4: _CSRC + "prepare.cu", K1: _CSRC + "admm_zy.cu", K2: _CSRC + "polish.cu",
+           K3: _CSRC + "setup.cu", K5: _CSRC + "admm.cu", K6: _CSRC + "admm.cu",
+           K7: _CSRC + "polish.cu", K8: _CSRC + "ns_warm.cu"}
+SIGMA = 1e-6     # the tuned proximal weight of the sigma path
 
 
 def emit(obj) -> None:
@@ -236,19 +286,58 @@ def kernel_problem(batch: int, dtype, rng):
         "zero_rows_A": int((d.A[0].abs().sum(-1) == 0).sum()),
         "active_rows": int(da[0].sum()),
     }
-    K4, K1, K2 = "prepare_scaled", "admm_zy_iterations_res", "polish_solve_compact"
-    admm = (admm_zy.admm_zy_iterations_res, admm_zy.admm_zy_iterations_res_plain)
+    zy = (admm_zy.admm_zy_iterations_res, admm_zy.admm_zy_iterations_res_plain)
     pol = (polish.polish_solve, polish.polish_solve_plain)
+    # the generic path's kernels: the x-space ADMM at sigma > 0 on the same
+    # scaled problem, the polish with dense H and its Newton-Schulz inverse
+    eye_n = torch.eye(N, dtype=dtype, device=DEV)
+    Kinv_s = ns_inverse(K + SIGMA * eye_n, qpp.ns_iters)
+    xs_args = (Kinv_s, *admm_args[1:])
+    xs_cold = (Kinv_s, *cold_args[1:])
+    xk = dict(iters=qpp.iterations, sigma=SIGMA, alpha=qpp.alpha)
+    H_reg = d.H + qpp.polish_reg * eye_n
+    Hinv_d = ns_inverse(H_reg, qpp.ns_iters)
+    S_d = da[:, :, None] * da[:, None, :] * (d.A @ Hinv_d @ d.A.transpose(-1, -2)) \
+        + torch.diag_embed(qpp.polish_reg * da + (1.0 - da))
+    Sinv_d = ns_inverse(S_d, qpp.ns_iters)
+    pk2 = dict(refine=qpp.polish_refine, reg=qpp.polish_reg)
+    # one output, as a 1-tuple like every other kernel's
+    nw = (lambda *a, **k: (ns_warm.ns_inverse_warm(*a, **k),),
+          lambda *a, **k: (ns_warm.ns_inverse_warm_plain(*a, **k),))
     return [
         (K4, "main", prepare.prepare_scaled, prepare.prepare_scaled_plain, prep_args, pk),
-        (K1, "main", *admm, admm_args, dict(iters=qpp.iterations, alpha=qpp.alpha)),
-        (K1, "resolving", *admm, cold_args, dict(iters=3, alpha=qpp.alpha)),
-        (K2, "main", *pol, (Hc, Hinv, Sinv, *pol_tail),
-         dict(refine=qpp.polish_refine, reg=qpp.polish_reg)),
+        (K1, "main", *zy, admm_args, dict(iters=qpp.iterations, alpha=qpp.alpha)),
+        (K1, "resolving", *zy, cold_args, dict(iters=3, alpha=qpp.alpha)),
+        (K2, "main", *pol, (Hc, Hinv, Sinv, *pol_tail), pk2),
         (K2, "resolving", *pol,
          (Hc, (0.7 * Hinv[0], 0.7 * Hinv[1], Hinv[2]), 0.7 * Sinv, *pol_tail),
          dict(refine=1, reg=qpp.polish_reg)),
+        (K5, "main", admm.admm_iterations_res, admm.admm_iterations_res_plain, xs_args, xk),
+        (K5, "resolving", admm.admm_iterations_res, admm.admm_iterations_res_plain,
+         xs_cold, dict(xk, iters=3)),
+        (K6, "main", admm.admm_iterations, admm.admm_iterations_plain, xs_args[:9], xk),
+        (K7, "main", *pol, (H_reg, Hinv_d, Sinv_d, *pol_tail), pk2),
+        (K7, "resolving", *pol, (H_reg, 0.7 * Hinv_d, 0.7 * Sinv_d, *pol_tail),
+         dict(refine=1, reg=qpp.polish_reg)),
+        *((K8, case, *nw, a, dict(warm_iters=2))
+          for case, a in ns_warm_cases(K, batch, dtype, rng)),
     ], stats
+
+
+def ns_warm_cases(K, batch, dtype, rng):
+    """(case, (A, W)) of the warm Newton-Schulz kernel: see the tolerance
+    table."""
+    r = lambda *s: torch.as_tensor(rng.standard_normal(s), device=DEV).to(dtype)
+    A42 = K * (1.0 + 1e-3 * r(batch, 1, 1))
+    W42 = ns_inverse(K, 30)
+    G = r(batch, 70, 42)
+    S70 = G @ G.transpose(-1, -2) / 42 + 0.5 * torch.eye(70, dtype=dtype, device=DEV)
+    A70 = S70 * (1.0 + 1e-3 * r(batch, 1, 1))
+    W70 = ns_inverse(S70, 30)
+    nan_w = W42.clone()
+    nan_w[:, 3, 5] = float("nan")
+    return [("main", (A42, W42)), ("n70", (A70, W70)), ("nan_warm", (A42, nan_w)),
+            ("far_warm", (A42, 1e9 * W42)), ("blowup", (1e-20 * K, -5e22 * W42))]
 
 
 def setup_flat(res):
@@ -423,11 +512,18 @@ def time_ms(fn, reps=20, warmup=3, host_ahead=False):
     return statistics.median(times)
 
 
-def flops_of(name: str, batch: int, kw: dict) -> float:
-    """Multiply-adds counted as 2, matvecs only (the elementwise tails are
-    a few percent)."""
-    n, m, k = N, M, KBLK
+def flops_of(name: str, batch: int, kw: dict, n: int = N) -> float:
+    """Multiply-adds counted as 2, matvecs and matrix products only (the
+    elementwise tails are a few percent)."""
+    m, k = M, KBLK
     prep = lambda sweeps: sweeps * (2 * n * n + 4 * m * n) + 2 * (n * n + m * n)
+    if name == K8:
+        # the ||I - A W|| product and two products a step, 2 n^3 each
+        return float((1 + 2 * kw["warm_iters"]) * 2 * n ** 3) * batch
+    if name in (K5, K6):
+        mv = 2 * (2 * m * n + n * n)                 # A^T t, K^-1 ., A .
+        epi = 2 * (2 * m * n + n * n) if name == K5 else 0   # A x, Hs x, A^T y
+        return float(kw["iters"] * mv + epi) * batch
     if name == "prepare_scaled":
         per = prep(kw["sweeps"])
     elif name == K3:
@@ -441,11 +537,45 @@ def flops_of(name: str, batch: int, kw: dict) -> float:
         per = kw["iters"] * mv + 2 * (n * n + m * n) + 2 * (m * n + n * n) \
             + 2 * (m * n + n * n + m * n)
     else:
-        hmv = 2 * (k * k + n)                        # compact H or H^-1 apply
+        # compact H or H^-1 apply, or dense
+        hmv = 2 * n * n if name == K7 else 2 * (k * k + n)
         init = 2 * hmv + 2 * (2 * m * n) + 2 * m * m
         per_ref = 3 * hmv + 4 * (2 * m * n) + 2 * m * m
         per = init + kw["refine"] * per_ref + 2 * (2 * m * n) + hmv
     return float(per) * batch
+
+
+def ns_warm_extra(row, case, fn, plain, args, kw, got):
+    """The warm Newton-Schulz kernel beside the torch.matmul chain of the
+    solver's warm update (`linalg.ns_inverse_warm_shared`, cuBLAS products)
+    at n = 42 and 70, and its guarded cases against the Jacobi start X0."""
+    A, W = args
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=DEV)
+    err = torch.amax(torch.sum(torch.abs(eye - A @ W), dim=-1), dim=-1)
+    row[f"{case}_warm_accepted"] = int((err < 1e3).sum())
+    chain = lambda: ns_inverse_warm_shared(A, W, kw["warm_iters"])
+    if case == "main":
+        row["torch_chain_ms"] = time_ms(chain, host_ahead=True)
+    elif case == "n70":
+        size = lambda t: t.numel() * t.element_size()
+        t_bytes = (size(A) + size(W) + size(got[0])) / HBM_BYTES_PER_S * 1e3
+        t_ops = flops_of(K8, BATCH, kw, n=n) / F32_FLOPS * 1e3
+        row["n70"] = {"ms": time_ms(lambda: fn(*args, **kw), host_ahead=True),
+                      "plain_ms": time_ms(lambda: plain(*args, **kw), reps=5, warmup=1),
+                      "torch_chain_ms": time_ms(chain, host_ahead=True),
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    elif case == "blowup":
+        # the iterate passed 1e30 in every scenario: X0 itself comes back
+        x0 = ns_warm._cold_x0(A)
+        gap = float((got[0] - x0).abs().max() / x0.abs().max())
+        row["blowup_vs_x0"] = gap
+        if gap > 1e-5 or not bool((got[0].abs() < 1e30).all()):
+            raise AssertionError(f"{K8}: blow-up case did not return X0 ({gap:.3e})")
+    if case in ("nan_warm", "far_warm", "blowup") and row[f"{case}_warm_accepted"] != (
+            A.shape[0] if case == "blowup" else 0):
+        raise AssertionError(f"{K8} {case}: the warm-start guard read {err}")
 
 
 def check_kernels():
@@ -458,6 +588,8 @@ def check_kernels():
             errs, got = compare(name, case, fn, plain, args, kw, torch.float32)
             if case != "main":
                 rows[name][f"{case}_f32"] = errs
+                if name == K8:
+                    ns_warm_extra(rows[K8], case, fn, plain, args, kw, got)
                 continue
             ms = time_ms(lambda: fn(*args, **kw), host_ahead=True)
             ms_with_host = time_ms(lambda: fn(*args, **kw))
@@ -482,6 +614,8 @@ def check_kernels():
                 "shape": {"B": BATCH, "n": N, "m": M, **{k: v for k, v in kw.items()
                                                          if isinstance(v, int)}},
             }
+            if name == K8:
+                ns_warm_extra(rows[K8], case, fn, plain, args, kw, got)
             if name == K3:
                 # the variant without the prepare tail, and the same launch
                 # again: a race between threads would rarely repeat bit for bit
@@ -502,7 +636,7 @@ def check_kernels():
             for name, case, fn, plain, args, kw in probs:
                 errs, _ = compare(name, case, fn, plain, args, kw, dtype)
                 rows[name][f"{case}_{str(dtype)[6:].replace('float', 'f')}_B{batch}"] = {
-                    o: e["rel_elem"] if name == "prepare_scaled"
+                    o: e["rel_elem"] if name == K4
                     else e["abs_err"] / e["scale"] if e["scale"] else e["abs_err"]
                     for o, e in errs.items()}
     return rows, stats
@@ -537,61 +671,43 @@ def run_walk(batch: int, qpp: QPSolverParams, offsets, record=None, steps=None,
     return ms, kkts, flagged
 
 
-COMPARE_STEPS = 70     # the window both paths run: steps 0..69, one contact switch
-# kernels each path must launch, and must not
+COMPARE_STEPS = 70     # the window the shorter paths run: steps 0..69, one contact switch
+# each path: steps (None: all), setup backend, solver params, kernels it must
+# launch at least once a step (the setup's exactly once), kernels it must not
 PATHS = {
-    "kernel": dict(steps=None, runs=(K3, "admm_zy_iterations_res", "polish_solve_compact"),
-                   never=("prepare_scaled",)),
-    "torch": dict(steps=COMPARE_STEPS,
-                  runs=("prepare_scaled", "admm_zy_iterations_res", "polish_solve_compact"),
-                  never=(K3,)),
+    "kernel": dict(steps=None, setup_backend="kernel", qpp=QPSolverParams(),
+                   runs=(K3, K1, K2), never=(K4, K5, K7)),
+    "torch": dict(steps=COMPARE_STEPS, setup_backend="torch", qpp=QPSolverParams(),
+                  runs=(K4, K1, K2), never=(K3, K5, K7)),
+    "sigma": dict(steps=COMPARE_STEPS, setup_backend="kernel",
+                  qpp=QPSolverParams(sigma=SIGMA),
+                  runs=(K3, K5, K2), never=(K4, K1, K7)),
 }
 
 
-def drive_path(setup_backend: str, offsets):
-    """One path of the control cycle at B = 4096 in float32, the launch
-    counts zeroed just before and read just after.  Returns (launches,
-    summary, [(tau, kkt) of the first COMPARE_STEPS steps])."""
-    spec = PATHS[setup_backend]
-    qpp = QPSolverParams()
-    # warm-up outside the counted run: first-use allocator and library
-    # start-up costs are set-up, not step time
-    run_walk(BATCH, qpp, offsets, steps=3, setup_backend=setup_backend)
-    n_steps = TRAJ["base_R"].shape[0] if spec["steps"] is None else spec["steps"]
-    kept = []
-
-    def record(t, out):
-        if t < COMPARE_STEPS:
-            kept.append((out.tau.clone(), out.qp_info.kkt_residual.clone()))
-
-    kernels.reset_counts()
-    qp.HOST_SYNCS = 0
-    torch.cuda.reset_peak_memory_stats()
-    ms, kkts, flagged = run_walk(BATCH, qpp, offsets, record, n_steps, setup_backend)
-    launches = kernels.launch_counts()
-    plain = kernels.plain_counts()
-    syncs = qp.HOST_SYNCS
-    for k in spec["runs"]:
+def check_run(tag, launches, plain, kkts, flagged, runs, never, n_steps):
+    """The assertions every counted run shares."""
+    for k in runs:
         if launches[k] == 0:
-            raise AssertionError(f"{setup_backend} path: {k} was never launched: {launches}")
-    for k in spec["never"]:
+            raise AssertionError(f"{tag}: {k} was never launched: {launches}")
+    for k in never:
         if launches[k] != 0:
-            raise AssertionError(f"{setup_backend} path launched {k}: {launches}")
-    once = K3 if setup_backend == "kernel" else "prepare_scaled"
-    if launches[once] != n_steps:
-        raise AssertionError(f"{once}: {launches[once]} launches in {n_steps} steps")
+            raise AssertionError(f"{tag} launched {k}: {launches}")
     if any(plain.values()):
-        raise AssertionError(f"a plain version ran on the {setup_backend} path: {plain}")
+        raise AssertionError(f"a plain version ran on {tag}: {plain}")
     n_flag = sum(flagged)
     if n_flag > 1e-4 * BATCH * n_steps:
         raise AssertionError(
-            f"{n_flag} flagged scenario-steps (kkt > threshold) of {BATCH * n_steps}")
+            f"{tag}: {n_flag} flagged scenario-steps (kkt > threshold) of {BATCH * n_steps}")
     if max(kkts) > 3e-3:
-        raise AssertionError(f"{setup_backend} path: max KKT {max(kkts):.3e} > 3e-3")
+        raise AssertionError(f"{tag}: max KKT {max(kkts):.3e} > 3e-3")
+    return n_flag
+
+
+def step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs):
     steady = sorted(ms[1:])
     med = statistics.median(steady)
-    return launches, {
-        "setup_backend": setup_backend,
+    return {
         "steps": n_steps, "batch": BATCH, "dtype": "float32",
         "ms_per_step_median": med,
         "ms_per_step_p90": steady[int(0.9 * (len(steady) - 1))],
@@ -602,44 +718,286 @@ def drive_path(setup_backend: str, offsets):
         "launches_per_step": {k: v / n_steps for k, v in launches.items()},
         "host_syncs_per_step": syncs / n_steps,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-    }, kept
+    }
 
 
-def compare_paths(kept_kernel, kept_torch):
-    """The two paths against each other, same offsets, steps 0..69: per step
-    max |tau_kernel - tau_torch| and max |KKT difference| over the batch.
-    Asserted only on the scenario-steps both paths certify (relative KKT <
-    1e-5), to 1e-3 N.m: an uncertified float32 step keeps an ADMM iterate,
-    and two of those differ by the ADMM's accuracy, not by rounding."""
-    per_step, worst_cert, n_cert = [], 0.0, 0
-    for (ta, ka), (tb, kb) in zip(kept_kernel, kept_torch):
+def drive_path(path: str, offsets):
+    """One path of the control cycle at B = 4096 in float32, the launch
+    counts zeroed just before and read just after.  Returns (launches,
+    summary, [(tau, kkt) of the first COMPARE_STEPS steps])."""
+    spec = PATHS[path]
+    qpp, backend = spec["qpp"], spec["setup_backend"]
+    # warm-up outside the counted run: first-use allocator and library
+    # start-up costs are set-up, not step time
+    run_walk(BATCH, qpp, offsets, steps=3, setup_backend=backend)
+    n_steps = TRAJ["base_R"].shape[0] if spec["steps"] is None else spec["steps"]
+    kept, last = [], {}
+    orig_solve = qp.solve_batched
+
+    def solve_spy(data, *a, **k):           # keeps references only: no device work
+        out = orig_solve(data, *a, **k)
+        last["data"], last["state"] = data, out[0]
+        return out
+
+    def record(t, out):
+        if t < COMPARE_STEPS:
+            st = last["state"]
+            kept.append((out.tau.clone(), out.qp_info.kkt_residual.clone(),
+                         qp._sign_violation(last["data"], st.x, st.y)))
+
+    kernels.reset_counts()
+    qp.HOST_SYNCS = 0
+    torch.cuda.reset_peak_memory_stats()
+    qp.solve_batched = solve_spy
+    try:
+        ms, kkts, flagged = run_walk(BATCH, qpp, offsets, record, n_steps, backend)
+    finally:
+        qp.solve_batched = orig_solve
+    launches = kernels.launch_counts()
+    syncs = qp.HOST_SYNCS
+    n_flag = check_run(f"the {path} path", launches, kernels.plain_counts(), kkts, flagged,
+                       spec["runs"], spec["never"], n_steps)
+    setup, *solver = spec["runs"]
+    if launches[setup] != n_steps or any(launches[k] < n_steps for k in solver):
+        raise AssertionError(f"the {path} path: {launches} in {n_steps} steps")
+    summary = {"path": path, "setup_backend": backend, "sigma": qpp.sigma,
+               **step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs)}
+    return launches, summary, kept
+
+
+def compare_paths(kept_a, kept_b):
+    """Two paths against each other, same offsets, steps 0..69: per step
+    max |tau_a - tau_b| and max |KKT difference| over the batch.  Asserted
+    only on the scenario-steps both paths certify, to 1e-3 N.m: relative KKT
+    < 1e-5 AND sign violation < 1e-5, the solver's own acceptance measure.
+    An uncertified float32 step keeps an ADMM iterate, and two of those
+    differ by the ADMM's accuracy, not by rounding; a polish of a wrong
+    active set can reach a small KKT residual with wrong-signed multipliers
+    (a saddle, not the solution), which only the sign violation shows.  The
+    KKT-only count and gap are printed beside, not asserted."""
+    per_step, worst_cert, n_cert, worst_kkt, n_kkt = [], 0.0, 0, 0.0, 0
+    for (ta, ka, sa), (tb, kb, sb) in zip(kept_a, kept_b):
         dtau = (ta.double() - tb.double()).abs().amax(dim=1)
-        cert = (ka < 1e-5) & (kb < 1e-5)
+        kkt_ok = (ka < 1e-5) & (kb < 1e-5)
+        cert = kkt_ok & (sa < 1e-5) & (sb < 1e-5)
         c = float(dtau[cert].max()) if bool(cert.any()) else 0.0
         worst_cert, n_cert = max(worst_cert, c), n_cert + int(cert.sum())
+        if bool(kkt_ok.any()):
+            worst_kkt = max(worst_kkt, float(dtau[kkt_ok].max()))
+        n_kkt += int(kkt_ok.sum())
         per_step.append({"max_dtau_Nm": float(dtau.max()), "max_dtau_Nm_certified": c,
                          "max_dkkt": float((ka - kb).abs().max()),
-                         "certified": int(cert.sum())})
+                         "certified": int(cert.sum()), "kkt_only": int(kkt_ok.sum()),
+                         "kkt_only_over_1e-3_Nm": int((kkt_ok & (dtau > 1e-3)).sum())})
     if n_cert == 0:
         raise AssertionError("no scenario-step certified by both paths")
     if worst_cert > 1e-3:
         raise AssertionError(f"paths differ by {worst_cert:.3e} N.m on a certified step")
     return {"steps": len(per_step), "certified_scenario_steps": n_cert,
             "max_dtau_Nm_certified": worst_cert,
+            "kkt_only_scenario_steps": n_kkt, "max_dtau_Nm_kkt_only": worst_kkt,
             "max_dtau_Nm": max(r["max_dtau_Nm"] for r in per_step),
             "max_dkkt": max(r["max_dkkt"] for r in per_step), "per_step": per_step}
 
 
-def main_paths():
-    offsets = replay.make_offsets(BATCH, torch.float32, np.random.default_rng(SEED + 1), DEV)
-    launches_k, main_k, kept_k = drive_path("kernel", offsets)
-    launches_t, main_t, kept_t = drive_path("torch", offsets)
-    # every kernel is launched on at least one path; a kernel's row carries
-    # the count of the path that runs it
-    launches = {k: launches_k[k] or launches_t[k] for k in launches_k}
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel was launched on no path: {launches}")
-    return launches, main_k, main_t, compare_paths(kept_k, kept_t)
+def main_paths(offsets):
+    """The three paths of the control step, each against the main one."""
+    out = {}
+    for path in PATHS:
+        out[path] = drive_path(path, offsets)
+    kept_k = out["kernel"][2]
+    versus = {f"kernel_path_vs_{p}_path": compare_paths(kept_k, out[p][2])
+              for p in ("torch", "sigma")}
+    return {p: v[0] for p, v in out.items()}, {p: v[1] for p, v in out.items()}, versus
+
+
+# --------------------------------------------------------------------------
+# the generic solve: the walk's QPs without the closed-form H^-1
+# --------------------------------------------------------------------------
+
+GENERIC_STEPS = range(30, COMPARE_STEPS)   # one contact switch (step 40)
+# dense vs compact x, share of max(1, max |x|), where both certify (KKT and
+# sign violation): the two polish paths use different H^-1 (closed form vs
+# Newton-Schulz) and their refinement passes converge x to the same active
+# set's solution; an H100 measured 4.1e-7 (7.7e-5 on KKT alone: a saddle)
+X_TOL = 1e-5
+
+
+def record_qps(offsets):
+    """Replay the main path over steps 0..69 and keep, for steps 30..69, the
+    QP each step solved: data, switch-masked warm start, per-scenario warm
+    mask and switch flags, and its solution, certificate and sign
+    violation.  The compact-H
+    path must leave the cache's dense H^-1 slot as it was (zero)."""
+    rec, calls = [], {"solve": 0}
+    orig_solve, orig_mask = qp.solve_batched, wbc._switch_masked_warm
+    clone = lambda tup: type(tup)(*(t.clone() for t in tup))
+
+    def mask_spy(carry, switch):
+        calls["switch"] = switch.clone()
+        return orig_mask(carry, switch)
+
+    def solve_spy(data, warm, params, backend, **kw):
+        out = orig_solve(data, warm, params, backend, **kw)
+        if calls["solve"] in GENERIC_STEPS:
+            rec.append(dict(data=clone(data), warm=clone(warm), switch=calls["switch"],
+                            use_warm=kw["use_warm"].clone(), x=out[0].x.clone(),
+                            kkt=out[1].kkt_residual.clone(),
+                            sv=qp._sign_violation(data, out[0].x, out[0].y)))
+        calls["solve"] += 1
+        return out
+
+    qp.solve_batched, wbc._switch_masked_warm = solve_spy, mask_spy
+    try:
+        model = anymal_d_model(torch.float32, DEV)
+        _, cache = replay.replay(model, TRAJ, range(COMPARE_STEPS), BATCH, QPSolverParams(),
+                                 offsets)
+    finally:
+        qp.solve_batched, wbc._switch_masked_warm = orig_solve, orig_mask
+    if bool(cache.hinv.any()):
+        raise AssertionError("the compact-H path wrote the cache's dense H^-1 slot")
+    return rec
+
+
+def generic_path(rec, sigma):
+    """The recorded QPs through `solve_batched(hinv_fn=None)` with a carried
+    cache, each step warm-started from this path's previous solution (duals
+    dropped where the contacts switched), under the recorded per-scenario
+    warm mask; the cache starts empty (mask all False)."""
+    qpp = QPSolverParams(sigma=sigma)
+
+    def run(steps):
+        cache = qp.make_cache(BATCH, N, M, qpp, torch.float32, DEV)
+        state, ms, kkts, flagged, worst, n_cert, worst_kkt = None, [], [], [], 0.0, 0, 0.0
+        for i, r in enumerate(rec[:steps]):
+            if state is None:
+                warm, use_warm = r["warm"], torch.zeros(BATCH, dtype=torch.bool, device=DEV)
+            else:
+                sw = r["switch"][:, None]
+                warm = qp.QPState(x=state.x, z=torch.where(sw, 0.0, state.z),
+                                  y=torch.where(sw, 0.0, state.y))
+                use_warm = r["use_warm"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, info, cache = qp.solve_batched(r["data"], warm, qpp, cache=cache,
+                                                  use_warm=use_warm)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and not bool(cache.hinv.any()):
+                # the first step inverts H cold; warm steps at
+                # ns_warm_iters_polish = 0 then pass the carried H^-1 through
+                raise AssertionError("the generic path left the cache's dense H^-1 empty")
+            kkt = info.kkt_residual
+            if not torch.isfinite(state.x).all():
+                raise AssertionError(f"generic path, sigma {sigma}: x not finite")
+            kkts.append(float(kkt.max()))
+            flagged.append(int((kkt > qpp.rescue_threshold).sum()))
+            # certified as in compare_paths: KKT and sign violation both small
+            kkt_ok = (kkt < 1e-5) & (r["kkt"] < 1e-5)
+            cert = kkt_ok & (qp._sign_violation(r["data"], state.x, state.y) < 1e-5) \
+                & (r["sv"] < 1e-5)
+            scale = torch.clamp_min(r["x"].abs().amax(dim=1), 1.0)
+            dx = (state.x - r["x"]).abs().amax(dim=1) / scale
+            if bool(cert.any()):
+                worst = max(worst, float(dx[cert].max()))
+            if bool(kkt_ok.any()):
+                worst_kkt = max(worst_kkt, float(dx[kkt_ok].max()))
+            n_cert += int(cert.sum())
+        return ms, kkts, flagged, worst, n_cert, worst_kkt
+
+    run(3)                                     # warm-up, not counted
+    kernels.reset_counts()
+    qp.HOST_SYNCS = 0
+    torch.cuda.reset_peak_memory_stats()
+    ms, kkts, flagged, worst, n_cert, worst_kkt = run(len(rec))
+    launches = kernels.launch_counts()
+    admm_k, other = (K5, K1) if sigma else (K1, K5)
+    n_flag = check_run(f"the generic path (sigma {sigma})", launches, kernels.plain_counts(),
+                       kkts, flagged, (K7, admm_k), (K2, other, K3), len(rec))
+    if n_cert == 0 or worst > X_TOL:
+        raise AssertionError(f"generic (dense H) vs main path (compact H): x differs by "
+                             f"{worst:.3e} of its scale where both certify ({n_cert})")
+    return launches, {
+        "path": "generic", "sigma": sigma, "steps_of_the_walk": [GENERIC_STEPS.start,
+                                                                 GENERIC_STEPS.stop - 1],
+        **step_summary(ms, kkts, flagged, n_flag, launches, len(rec), qp.HOST_SYNCS),
+        "dense_vs_compact_x": {"max_share_of_scale": worst, "tol": X_TOL,
+                               "certified_scenario_steps": n_cert,
+                               "max_share_of_scale_kkt_only": worst_kkt},
+    }
+
+
+def no_cache_step():
+    """One cold control step without a cache (step 0 of the walk, B = 4096):
+    every inverse cold, the plain Schur polish; returns (out, carry)."""
+    model = anymal_d_model(torch.float32, DEV)
+    obs, ref, new = replay.step_inputs(TRAJ, 0, BATCH, torch.float32,
+                                       replay.make_offsets(BATCH, torch.float32,
+                                                           np.random.default_rng(SEED + 2),
+                                                           DEV), DEV)
+    carry = wbc.init_carry(BATCH, torch.float32, DEV)
+    step = lambda: wbc.wbc_step_batched(model, ControllerParams(), QPSolverParams(), obs, ref,
+                                        carry, new)
+    step()                                     # warm-up
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if len(result) != 2:
+        raise AssertionError("a step without a cache returns (out, carry)")
+    out = result[0]
+    kkt = out.qp_info.kkt_residual
+    if not torch.isfinite(out.tau).all() or float(kkt.max()) > 3e-3:
+        raise AssertionError(f"cold step without a cache: max KKT {float(kkt.max()):.3e}")
+    return {"path": "no_cache", "batch": BATCH, "ms": ms, "max_kkt": float(kkt.max()),
+            "launches": kernels.launch_counts(), "plain_calls": kernels.plain_counts()}
+
+
+def standalone_kernels(rec):
+    """The two kernels no path of the control step runs, driven through
+    their entry points over the recorded QPs: the warm Newton-Schulz update
+    of K^-1 = (sH + sigma I + A^T rho A)^-1 from step to step (beside the
+    solver's torch.matmul chain `ns_inverse_warm_shared`, compared where the
+    warm start is accepted), and the x-space ADMM loop without its epilogue
+    on each scaled problem from its scaled warm start."""
+    qpp = QPSolverParams(sigma=SIGMA)
+    eye = torch.eye(N, device=DEV)
+    kernels.reset_counts()
+    X, worst, accepted, kkts = None, 0.0, 0, []
+    for r in rec:
+        d, w = r["data"], r["warm"]
+        sH, sA, sg, sl, su, rho, wxs, wzs, wys, ds, es = prepare.prepare_scaled(
+            d.H, d.A, d.g, d.l, d.u, w.x, w.z, w.y, sweeps=qpp.scaling_iters,
+            rho0=qpp.rho, rho_eq_scale=qpp.rho_eq_scale)
+        K = sH + SIGMA * eye + (sA.transpose(-1, -2) * rho[:, None, :]) @ sA
+        if X is None:
+            X = ns_inverse(K, qpp.ns_iters)
+        else:
+            ok = torch.amax(torch.sum(torch.abs(eye - K @ X), dim=-1), dim=-1) < 1e3
+            chain = ns_inverse_warm_shared(K, X, qpp.ns_warm_iters)
+            X = ns_warm.ns_inverse_warm(K, X, qpp.ns_warm_iters)
+            gap = (X - chain).abs().amax(dim=(1, 2)) / chain.abs().amax(dim=(1, 2))
+            accepted += int(ok.sum())
+            if bool(ok.any()):
+                worst = max(worst, float(gap[ok].max()))
+            # where the contacts switched, a cache user inverts cold
+            cold = ~r["use_warm"]
+            if bool(cold.any()):
+                X = torch.where(cold[:, None, None], ns_inverse(K, qpp.ns_iters), X)
+        x, z, y = admm.admm_iterations(X, sA, sg, sl, su, rho, wxs, wzs, wys,
+                                       iters=qpp.iterations, sigma=SIGMA, alpha=qpp.alpha)
+        pr, du = qp.kkt_residual(d, ds * x, es * y)
+        kkts.append(float(torch.maximum(pr, du).max()))
+    launches = kernels.launch_counts()
+    if launches[K8] != len(rec) - 1 or launches[K6] != len(rec):
+        raise AssertionError(f"standalone kernels: {launches}")
+    if worst > 1e-3 or not all(np.isfinite(kkts)):
+        raise AssertionError(f"warm Newton-Schulz kernel vs torch chain: {worst:.3e}")
+    return launches, {"path": "standalone", "steps": len(rec), "batch": BATCH,
+                      "ns_warm_vs_torch_chain_max_share": worst, "warm_accepted": accepted,
+                      "admm_loop_max_kkt": max(kkts)}
 
 
 def torque_parity():
@@ -696,16 +1054,37 @@ def main():
                     if "registers" in ln or "error" in ln.lower()]})
 
     rows, stats = check_kernels()
-    launches, main_k, main_t, versus = main_paths()
+    offsets = replay.make_offsets(BATCH, torch.float32, np.random.default_rng(SEED + 1), DEV)
+    launches, summaries, versus = main_paths(offsets)
+    rec = record_qps(offsets)
+    generic = {s_: generic_path(rec, s_) for s_ in (0.0, SIGMA)}
+    standalone = standalone_kernels(rec)
+    del rec
+    no_cache = no_cache_step()
     parity = torque_parity()
-    for k, v in launches.items():
-        rows[k]["launches"] = v
-    emit({"main_path": main_k, "card": name, "power_limit": limit})
-    emit({"main_path": main_t, "card": name, "power_limit": limit})
-    emit({"kernel_path_vs_torch_path": versus, "card": name, "power_limit": limit})
-    emit({"torque_parity": parity, "card": name, "power_limit": limit})
-    emit({"kernels": list(rows.values()), "problem": stats,
-          "card": name, "power_limit": limit})
+    # each kernel's row carries the launches of the run that drives it: the
+    # main path's K3, K1, K2; the torch path's K4 (its code runs inside K3 on
+    # the main path); the sigma path's K5; the generic path's K7 (sigma 0);
+    # the standalone run's K6 and K8, which no path of the control step runs
+    counted = {K3: "kernel", K1: "kernel", K2: "kernel", K4: "torch", K5: "sigma"}
+    for k, path in counted.items():
+        rows[k]["launches"], rows[k]["launches_from"] = launches[path][k], f"{path} path"
+    rows[K7]["launches"] = generic[0.0][0][K7]
+    rows[K7]["launches_from"] = "generic path, sigma 0"
+    for k in (K6, K8):
+        rows[k]["launches"], rows[k]["launches_from"] = standalone[0][k], "standalone run"
+    if any(r["launches"] == 0 for r in rows.values()):
+        raise AssertionError(f"a kernel was launched on no run: {rows}")
+    tag = {"card": name, "power_limit": limit}
+    for path in PATHS:
+        emit({"main_path" if path == "kernel" else f"{path}_path": summaries[path], **tag})
+    emit({**versus, **tag})
+    for s_ in (0.0, SIGMA):
+        emit({"generic_path": generic[s_][1], **tag})
+    emit({"no_cache_step": no_cache, **tag})
+    emit({"standalone_kernels": standalone[1], **tag})
+    emit({"torque_parity": parity, **tag})
+    emit({"kernels": list(rows.values()), "problem": stats, **tag})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

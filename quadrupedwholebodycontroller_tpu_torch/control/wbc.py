@@ -363,7 +363,8 @@ def wbc_step_batched(
     cache_valid=False,
     setup_backend: str = "auto",
 ):
-    """One batched 400 Hz control cycle; returns (out, carry, cache).
+    """One batched 400 Hz control cycle; returns (out, carry, cache), or
+    (out, carry) without a `qp_cache`.
 
     Runs under `torch.no_grad()`: this is the serving path and no gradient
     flows through it.  The tensors decide the device: CUDA tensors go
@@ -371,7 +372,8 @@ def wbc_step_batched(
 
     qp_cache: the carried factorization cache (qp.make_cache).  cache_valid
     is the scalar warm gate, False on the first cycle; contact switches
-    inside the batch cold-restart only the scenarios that switched.
+    inside the batch cold-restart only the scenarios that switched.  None:
+    every inverse is cold and the solver runs its plain Schur polish.
 
     qp_backend: "kernel" (the solver kernels).  setup_backend: "kernel"
     (the fused setup kernel `ops.kernels.setup.setup_batched`, with the QP
@@ -387,9 +389,6 @@ def wbc_step_batched(
     if qp_backend != "kernel":
         raise NotImplementedError(
             f"qp_backend={qp_backend!r}: only 'kernel' is ported")
-    if qp_cache is None:
-        raise NotImplementedError(
-            "wbc_step_batched without a QPCache: a later slice of the port")
     B = obs.q.shape[0]
     dev = obs.q.device
     ref_is_new_b = torch.as_tensor(ref_is_new, dtype=torch.bool, device=dev).expand(B)
@@ -408,6 +407,11 @@ def wbc_step_batched(
         setup = wbc_setup(model, params, obs, ref, carry, ref_is_new_b)
     switch = setup.carry_updates["switch_flag"]
     warm = _switch_masked_warm(carry, switch)
+    if qp_cache is None:
+        qp_state, qp_info = qp.solve_batched(
+            setup.qp_data, warm, qp_params, qp_backend, hinv_fn=_wbc_polish_hinv,
+            prepared=prepared)
+        return _finish_step(setup, qp_state, qp_info)
     # cache invalidation keys on the switch EDGE (contacts changed at THIS
     # publish tick), not the held switch_flag: the flag stays up until the
     # next planner message (kept for the FD-derivative zeroing), but the

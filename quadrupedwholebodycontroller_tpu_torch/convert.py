@@ -21,7 +21,7 @@ from quadrupedwholebodycontroller_tpu_torch.models.robot_model import (
     _TENSOR_FIELDS,
     RobotModel,
 )
-from quadrupedwholebodycontroller_tpu_torch.ops.qp import QPCache, QPState
+from quadrupedwholebodycontroller_tpu_torch.ops.qp import QPCache, QPData, QPState
 
 _STATIC_FIELDS = ("name", "joint_names", "frame_names", "parent", "frame_body")
 
@@ -56,16 +56,26 @@ def ref_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> Reference:
 
 def carry_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> WBCCarry:
     """d: WBCCarry's fields, with qp_warm a dict (or tuple) of x, z, y."""
-    w = d["qp_warm"]
-    w = w if isinstance(w, dict) else dict(zip(QPState._fields, w))
     return WBCCarry(
         **{k: _t(d[k], dtype, device)
            for k in ("old_T", "old_J_st", "old_J_sw", "tdot_inv",
                      "integral_error", "prev_contacts")},
         switch_flag=_b(d["switch_flag"], device),
         deriv_valid=_b(d["deriv_valid"], device),
-        qp_warm=QPState(**{k: _t(w[k], dtype, device) for k in QPState._fields}),
+        qp_warm=qpstate_from_numpy(d["qp_warm"], dtype, device),
     )
+
+
+def qpdata_from_numpy(d, dtype=torch.float32, device="cuda") -> QPData:
+    """d: a dict (or tuple) of H (B, n, n), g (B, n), A (B, m, n), l, u (B, m)."""
+    d = d if isinstance(d, dict) else dict(zip(QPData._fields, d))
+    return QPData(**{k: _t(d[k], dtype, device) for k in QPData._fields})
+
+
+def qpstate_from_numpy(d, dtype=torch.float32, device="cuda") -> QPState:
+    """d: a dict (or tuple) of x (B, n), z, y (B, m)."""
+    d = d if isinstance(d, dict) else dict(zip(QPState._fields, d))
+    return QPState(**{k: _t(d[k], dtype, device) for k in QPState._fields})
 
 
 def cache_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> QPCache:

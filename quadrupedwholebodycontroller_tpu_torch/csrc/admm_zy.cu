@@ -18,7 +18,7 @@
 // over K^-1's slot then.  What still limits the kernel is shared-memory
 // bandwidth (one matrix word per multiply-add); register-resident rows or
 // tensor-core products are later work.
-#include "common.cuh"
+#include "admm_epilogue.cuh"
 
 namespace qwbc {
 
@@ -94,25 +94,7 @@ __global__ void admm_zy_kernel(
     kv[tid] = x;
   }
   if (is_row) tv[tid] = y;
-  __syncthreads();                                          // Ks is free now
-  load_matrix(Ks, Hs + bn * n, n, n, sn);
-  __syncthreads();
-
-  T ax = T(0), yu = T(0), lov = T(0), uov = T(0);
-  if (is_row) {
-    const T ei = e[bm + tid];
-    ax = row_dot(As, sn, tid, kv, n) / ei;
-    yu = ei * y;
-    lov = lo[bm + tid]; uov = uo[bm + tid];
-  }
-  T hx = T(0), aty = T(0), gu = T(0);
-  if (is_col) {
-    const T dj = d[bn + tid];
-    hx = row_dot(Ks, sn, tid, kv, n) / dj;
-    aty = col_dot(As, sn, tid, tv, m) / dj;
-    gu = gj / dj;
-  }
-  kkt_epilogue(is_row, is_col, ax, yu, lov, uov, hx, aty, gu, red, pr, du, sv, b);
+  admm_epilogue(Ks, As, kv, tv, red, sn, n, m, gj, y, Hs, lo, uo, d, e, pr, du, sv);
 }
 
 template <typename T>

@@ -21,8 +21,8 @@ import torch
 
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import build
 
-LAUNCHES = 0
-PLAIN_CALLS = 0
+LAUNCHES = {"admm_zy_iterations_res": 0}
+PLAIN_CALLS = {"admm_zy_iterations_res": 0}
 
 _BIG = 1e20   # one-sided bounds are clipped to +-1e20; finite is |.| < 1e19
 
@@ -73,8 +73,7 @@ def admm_zy_iterations_res_plain(Kinv, A, g, l, u, rho, x0, z0, y0,
                                  Hs, l_orig, u_orig, d, e,
                                  *, iters: int, alpha: float):
     """Plain PyTorch version, in the kernel's operation order."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    PLAIN_CALLS["admm_zy_iterations_res"] += 1
     l = torch.clamp(l, -_BIG, _BIG)
     u = torch.clamp(u, -_BIG, _BIG)
     lo = torch.clamp(l_orig, -_BIG, _BIG)
@@ -104,7 +103,6 @@ def admm_zy_iterations_res(Kinv, A, g, l, u, rho, x0, z0, y0,
     """Kinv (B,n,n) = K^-1 in SCALED space; A/g/l/u/rho scaled; Hs the
     scaled H; l_orig/u_orig the unscaled bounds; d/e the Ruiz scalings.
     Returns (x, z, y, pr, du, sv), x/z/y in scaled space."""
-    global LAUNCHES
     if A.device.type == "cpu":
         return admm_zy_iterations_res_plain(
             Kinv, A, g, l, u, rho, x0, z0, y0, Hs, l_orig, u_orig, d, e,
@@ -138,5 +136,5 @@ def admm_zy_iterations_res(Kinv, A, g, l, u, rho, x0, z0, y0,
         B, n, m, int(iters), alpha, 1.0 - alpha, w0, 1.0 - w0,
         torch.cuda.current_stream(A.device).cuda_stream,
     )
-    LAUNCHES += 1
+    LAUNCHES["admm_zy_iterations_res"] += 1
     return outs

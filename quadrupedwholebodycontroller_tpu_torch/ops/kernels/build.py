@@ -19,11 +19,11 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("prepare.cu", "admm_zy.cu", "polish.cu", "setup.cu")
-HEADERS = ("common.cuh", "prepare_tail.cuh")
+SOURCES = ("prepare.cu", "admm_zy.cu", "admm.cu", "polish.cu", "setup.cu", "ns_warm.cu")
+HEADERS = ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh")
 # sources written with the stage macros of common.cuh alone, which also
 # compile as plain C++ (see `host_lib`)
-HOST_SOURCES = ("setup.cu",)
+HOST_SOURCES = ("setup.cu", "ns_warm.cu")
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -110,10 +110,18 @@ def _declare(lib) -> None:
         fn = getattr(lib, f"qwbc_admm_zy_{suffix}")
         fn.argtypes = [_PTR] * 20 + [i, i, i, i, real, real, real, real, _PTR]
         fn.restype = i
+        fn = getattr(lib, f"qwbc_admm_{suffix}")
+        # pointers, B, n, m, iters, epilogue, sigma, alpha, 1 - alpha, stream
+        fn.argtypes = [_PTR] * 20 + [i, i, i, i, i, real, real, real, _PTR]
+        fn.restype = i
         fn = getattr(lib, f"qwbc_polish_{suffix}")
         fn.argtypes = [_PTR] * 17 + [i, i, i, i, i, i, real, _PTR]
         fn.restype = i
+        fn = getattr(lib, f"qwbc_polish_dense_{suffix}")
+        fn.argtypes = [_PTR] * 15 + [i, i, i, i, real, _PTR]
+        fn.restype = i
         _declare_setup(lib, suffix, real)
+        _declare_ns_warm(lib, suffix)
     lib.qwbc_error_string.argtypes = [i]
     lib.qwbc_error_string.restype = ctypes.c_char_p
 
@@ -124,6 +132,13 @@ def _declare_setup(lib, suffix, real) -> None:
     # pointer table, its length, the constant tables' lengths, B, the stride
     # of ref_is_new, fused, sweeps, rho0, rho_eq, stream
     fn.argtypes = [ctypes.POINTER(_PTR), i, i, i, i, i, i, i, real, real, _PTR]
+    fn.restype = i
+
+
+def _declare_ns_warm(lib, suffix) -> None:
+    i = ctypes.c_int
+    fn = getattr(lib, f"qwbc_ns_warm_{suffix}")
+    fn.argtypes = [_PTR, _PTR, _PTR, i, i, i, _PTR]   # A, W, X, B, n, iters, stream
     fn.restype = i
 
 
@@ -166,6 +181,7 @@ def host_lib():
         loaded = ctypes.CDLL(path)
         for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
             _declare_setup(loaded, suffix, real)
+            _declare_ns_warm(loaded, suffix)
         _host_lib = loaded
     return _host_lib
 

@@ -1,7 +1,9 @@
-"""Active-set polish solve + refinement with compact H, H^-1 (kernel K2).
+"""Active-set polish solve + refinement (kernels K2, compact H, and K7,
+dense H).
 
 `polish_solve` replaces the JAX package's Pallas kernel
-`ops/pallas/polish_kernel.py::polish_solve` (`_polish_kernel_compact`):
+`ops/pallas/polish_kernel.py::polish_solve` in both its forms
+(`_polish_kernel_compact` and `_polish_kernel`):
 
     y  = Sinv (-(da*b + B Hinv g))          x = Hinv (-g - B^T y)
     `refine` passes of preconditioned Richardson on the coupled KKT system:
@@ -9,12 +11,13 @@
         dy = Sinv (B Hinv r1 - r2)          dx = Hinv (r1 - B^T dy)
     z  = clip(A x, l, u), relative KKT residuals pr, du, sign violation sv
 
-with B = da * A never formed (B v = da*(A v), B^T w = A^T (da*w)) and
-H, H^-1 given as (diag (B, n) with zeros on the block rows, blk (B, k, k),
-start): a diagonal plus one dense block at rows start:start+k.
+with B = da * A never formed (B v = da*(A v), B^T w = A^T (da*w)).  H and
+H^-1 come either both dense (B, n, n) or both compact: (diag (B, n) with
+zeros on the block rows, blk (B, k, k), start), a diagonal plus one dense
+block at rows start:start+k.
 
-On a CUDA tensor the wrapper launches `csrc/polish.cu`; on a CPU tensor it
-takes `polish_solve_plain`.
+On a CUDA tensor the wrapper launches `csrc/polish.cu` (its compact or its
+dense variant); on a CPU tensor it takes `polish_solve_plain`.
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ from quadrupedwholebodycontroller_tpu_torch.ops.kernels.admm_zy import (
     kkt_epilogue,
 )
 
-LAUNCHES = 0
-PLAIN_CALLS = 0
+LAUNCHES = {"polish_solve_compact": 0, "polish_solve_dense": 0}
+PLAIN_CALLS = {"polish_solve_compact": 0, "polish_solve_dense": 0}
 
 
 def blockdiag_apply(compact, v):
@@ -41,15 +44,27 @@ def blockdiag_apply(compact, v):
     return torch.cat([dv[:, :start], bv, dv[:, start + k:]], dim=1)
 
 
+def _form(H, Hinv):
+    """ "compact" or "dense"; raises unless H and Hinv share one form."""
+    compact = isinstance(H, tuple)
+    if compact != isinstance(Hinv, tuple):
+        raise ValueError("H and Hinv must both be dense or both compact")
+    return "compact" if compact else "dense"
+
+
 def polish_solve_plain(H, Hinv, Sinv, A, da, g, b, l, u,
                        *, refine: int, reg: float):
     """Plain PyTorch version, in the kernel's operation order."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    form = _form(H, Hinv)
+    PLAIN_CALLS["polish_solve_" + form] += 1
     l = torch.clamp(l, -_BIG, _BIG)
     u = torch.clamp(u, -_BIG, _BIG)
-    apply_H = lambda v: blockdiag_apply(H, v)
-    apply_Hinv = lambda v: blockdiag_apply(Hinv, v)
+    if form == "compact":
+        apply_H = lambda v: blockdiag_apply(H, v)
+        apply_Hinv = lambda v: blockdiag_apply(Hinv, v)
+    else:
+        apply_H = lambda v: _mv(H, v)
+        apply_Hinv = lambda v: _mv(Hinv, v)
     bv = lambda v: da * _mv(A, v)          # B v
     btw = lambda w: _mvt(A, da * w)        # B^T w
 
@@ -71,45 +86,53 @@ def polish_solve_plain(H, Hinv, Sinv, A, da, g, b, l, u,
 
 
 def polish_solve(H, Hinv, Sinv, A, da, g, b, l, u, *, refine: int, reg: float):
-    """H, Hinv: compact (diag, blk, start) tuples of the REGULARIZED polish
-    Hessian and its inverse; Sinv (B, m, m) the (approximate) inverse of
-    the polish Schur complement; da (B, m) the 0/1 active-row mask; b the
-    active bounds.  Any B >= 1.  Returns (x, y, z, pr, du, sv)."""
-    global LAUNCHES
-    if not (isinstance(H, tuple) and isinstance(Hinv, tuple)):
-        raise NotImplementedError(
-            "dense-H polish kernel: a later slice of the port")
+    """H, Hinv: the REGULARIZED polish Hessian and its inverse, both dense
+    (B, n, n) or both compact (diag, blk, start) tuples; Sinv (B, m, m) the
+    (approximate) inverse of the polish Schur complement; da (B, m) the 0/1
+    active-row mask; b the active bounds.  Any B >= 1.  Returns
+    (x, y, z, pr, du, sv)."""
+    form = _form(H, Hinv)
     if A.device.type == "cpu":
         return polish_solve_plain(H, Hinv, Sinv, A, da, g, b, l, u,
                                   refine=refine, reg=reg)
-    hd, hblk, start = H
-    hid, hiblk, istart = Hinv
-    if start != istart or hblk.shape != hiblk.shape:
-        raise ValueError("H and Hinv must share one block layout")
     B, m, n = A.shape
-    k = hblk.shape[-1]
     l = torch.clamp(l, -_BIG, _BIG)
     u = torch.clamp(u, -_BIG, _BIG)
-    suffix = build.check_inputs(A, {
-        "H.diag": (hd, (B, n)), "H.blk": (hblk, (B, k, k)),
-        "Hinv.diag": (hid, (B, n)), "Hinv.blk": (hiblk, (B, k, k)),
+    common = {
         "Sinv": (Sinv, (B, m, m)), "A": (A, (B, m, n)), "da": (da, (B, m)),
         "g": (g, (B, n)), "b": (b, (B, m)), "l": (l, (B, m)), "u": (u, (B, m)),
-    })
-    if max(n, m) > 1024 or not (0 <= start and start + k <= n):
-        raise ValueError(
-            f"polish kernel takes n, m <= 1024 and a block inside n; got "
-            f"n={n}, m={m}, start={start}, k={k}")
+    }
+    if form == "compact":
+        hd, hblk, start = H
+        hid, hiblk, istart = Hinv
+        if start != istart or hblk.shape != hiblk.shape:
+            raise ValueError("H and Hinv must share one block layout")
+        k = hblk.shape[-1]
+        suffix = build.check_inputs(A, {
+            "H.diag": (hd, (B, n)), "H.blk": (hblk, (B, k, k)),
+            "Hinv.diag": (hid, (B, n)), "Hinv.blk": (hiblk, (B, k, k)), **common})
+        if not (0 <= start and start + k <= n):
+            raise ValueError(f"polish kernel takes a block inside n; got "
+                             f"n={n}, start={start}, k={k}")
+        mats = (hd, hblk, hid, hiblk)
+        shape_args = (B, n, m, k, int(start))
+    else:
+        suffix = build.check_inputs(A, {
+            "H": (H, (B, n, n)), "Hinv": (Hinv, (B, n, n)), **common})
+        mats = (H, Hinv)
+        shape_args = (B, n, m)
+    if max(n, m) > 1024:
+        raise ValueError(f"polish kernel takes n, m <= 1024; got n={n}, m={m}")
     new = lambda *shape: torch.empty(shape, dtype=A.dtype, device=A.device)
     outs = (new(B, n), new(B, m), new(B, m), new(B), new(B), new(B))
     if B == 0:
         return outs
     build.launch(
-        "polish", suffix,
-        *(t.data_ptr() for t in (hd, hblk, hid, hiblk, Sinv, A, da, g, b, l, u)),
+        "polish" if form == "compact" else "polish_dense", suffix,
+        *(t.data_ptr() for t in (*mats, Sinv, A, da, g, b, l, u)),
         *(t.data_ptr() for t in outs),
-        B, n, m, k, int(start), int(refine), float(reg),
+        *shape_args, int(refine), float(reg),
         torch.cuda.current_stream(A.device).cuda_stream,
     )
-    LAUNCHES += 1
+    LAUNCHES["polish_solve_" + form] += 1
     return outs

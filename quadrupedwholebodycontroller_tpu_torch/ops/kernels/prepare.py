@@ -15,15 +15,14 @@ import torch
 
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import build
 
-LAUNCHES = 0
-PLAIN_CALLS = 0
+LAUNCHES = {"prepare_scaled": 0}
+PLAIN_CALLS = {"prepare_scaled": 0}
 
 
 def prepare_scaled_plain(H, A, g, l, u, wx, wz, wy, *, sweeps: int,
                          rho0: float, rho_eq_scale: float):
     """Plain PyTorch version, in the kernel's operation order."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    PLAIN_CALLS["prepare_scaled"] += 1
     absH = torch.abs(H)
     absA = torch.abs(A)
     d = torch.ones_like(g)
@@ -50,7 +49,6 @@ def prepare_scaled(H, A, g, l, u, wx, wz, wy, *, sweeps: int, rho0: float,
                    rho_eq_scale: float):
     """Batch-major (B, ...) in and out.  Returns
     (sH, sA, sg, sl, su, rho, wxs, wzs, wys, d, e)."""
-    global LAUNCHES
     if H.device.type == "cpu":
         return prepare_scaled_plain(
             H, A, g, l, u, wx, wz, wy,
@@ -76,5 +74,5 @@ def prepare_scaled(H, A, g, l, u, wx, wz, wy, *, sweeps: int, rho0: float,
         B, n, m, int(sweeps), float(rho0), float(rho0 * rho_eq_scale),
         torch.cuda.current_stream(H.device).cuda_stream,
     )
-    LAUNCHES += 1
+    LAUNCHES["prepare_scaled"] += 1
     return outs

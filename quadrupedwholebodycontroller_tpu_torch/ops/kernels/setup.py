@@ -42,8 +42,8 @@ from quadrupedwholebodycontroller_tpu_torch.config import (
 )
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import build, prepare
 
-LAUNCHES = 0
-PLAIN_CALLS = 0
+LAUNCHES = {"setup_batched": 0}
+PLAIN_CALLS = {"setup_batched": 0}
 
 NUM_BODIES = 13          # compiled into csrc/setup.cu, with NUM_JOINTS, NUM_LEGS
 PREPARED = ("sH", "sA", "sg", "sl", "su", "rho", "wxs", "wzs", "wys", "d", "e")
@@ -148,9 +148,8 @@ def setup_batched_plain(model, params, obs, ref, carry, ref_is_new,
     switch-masked warm start through `prepare_scaled_plain`."""
     from quadrupedwholebodycontroller_tpu_torch.control import wbc
 
-    global PLAIN_CALLS
     _check_supported(params, exact_mode)
-    PLAIN_CALLS += 1
+    PLAIN_CALLS["setup_batched"] += 1
     rn = _ref_is_new(ref_is_new, obs.q.shape[0], obs.q.device)
     s = wbc.wbc_setup(model, params, obs, ref, carry, rn)
     d, cu = s.qp_data, s.carry_updates
@@ -246,7 +245,6 @@ def setup_batched(model, params, obs, ref, carry, ref_is_new, qp_params=None,
     contiguous and owns its memory (no view of A enters the carry).
 
     ref_is_new: a bool or a (B,) bool tensor of any stride."""
-    global LAUNCHES
     if obs.base_p.device.type == "cpu":
         return setup_batched_plain(model, params, obs, ref, carry, ref_is_new,
                                    qp_params, exact_mode)
@@ -259,7 +257,7 @@ def setup_batched(model, params, obs, ref, carry, ref_is_new, qp_params=None,
     out = _run(launch, build.check_inputs, model, params, obs, ref, carry,
                ref_is_new, qp_params)
     if obs.q.shape[0] > 0:
-        LAUNCHES += 1
+        LAUNCHES["setup_batched"] += 1
     return out
 
 

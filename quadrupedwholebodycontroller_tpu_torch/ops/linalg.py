@@ -7,6 +7,8 @@ the part of the solve that is plain library code on either framework:
                            (X <- X(2I - A X)), cold or warm-started
   * ns_inverse_warm_shared warm update sharing A @ W between the divergence
                            check and the first iteration
+  * solve_kkt_schur        the active-set polish system via a Schur
+                           complement with Newton-Schulz inverses
   * inv3 / spd_inv6 / spd_inv12   closed-form block-Schur inverses
 
 float32 products must run at full precision: Newton-Schulz, the refinement
@@ -97,6 +99,40 @@ def ns_inverse_warm_shared(A, warm, warm_iters: int):
     X = torch.where(ok, X, X0)
     finite = torch.isfinite(X).all(dim=-1, keepdim=True).all(dim=-2, keepdim=True)
     return torch.where(finite, X, X0)
+
+
+def solve_kkt_schur(H, B, da, g, b, reg: float = 1e-8, iters: int = 30,
+                    refine: int = 2, Hinv=None):
+    """Solve the active-set KKT system matmul-only:
+
+        (1)  H x + B^T y = -g
+        (2)  B x + D y   = da * b,   D = diag(1-da) - reg*diag(da)
+
+    B is the row-masked constraint matrix (da_i * A_i), so active rows
+    (B_i x - reg y_i = b_i) and inactive rows (y_i = 0) decouple exactly.
+    Eliminating x = H^-1(-g - B^T y) gives the SPD Schur system
+        S y = -(da*b + B H^-1 g),  S = B H^-1 B^T + reg diag(da) + diag(1-da)
+    solved with a cold Newton-Schulz inverse of S; `refine` coupled
+    refinement passes knock the residual of the full system down after.
+    Returns (x, y)."""
+    mv = lambda M, v: (M @ v[..., None])[..., 0]
+    if Hinv is None:
+        Hinv = ns_inverse(H, iters)
+    Bt = B.transpose(-1, -2)
+    diag_S = reg * da + (1.0 - da)
+    S = B @ Hinv @ Bt + torch.diag_embed(diag_S)
+    Sinv = ns_inverse(S, iters)
+    D = (1.0 - da) - reg * da
+    y = mv(Sinv, -(da * b + mv(B, mv(Hinv, g))))
+    x = mv(Hinv, -g - mv(Bt, y))
+    for _ in range(refine):
+        r1 = -g - mv(H, x) - mv(Bt, y)
+        r2 = da * b - mv(B, x) - D * y
+        dy = mv(Sinv, mv(B, mv(Hinv, r1)) - r2)
+        dx = mv(Hinv, r1 - mv(Bt, dy))
+        x = x + dx
+        y = y + dy
+    return x, y
 
 
 def inv3(A):

@@ -8,11 +8,14 @@ design:
   * one SPD inverse K^-1 per problem by Newton-Schulz, warm-started from a
     carried cache and re-inverted cold only for scenarios whose contact set
     switched,
-  * the constraint-space ADMM loop with its residual epilogue (kernel
-    `admm_zy_iterations_res`),
+  * the ADMM loop with its residual epilogue: the constraint-space kernel
+    `admm_zy_iterations_res` at sigma = 0, the x-space kernel
+    `admm_iterations_res` at sigma > 0,
   * two rounds of active-set polish with the drop rule (kernel
-    `polish_solve`), the second compacted to the scenarios that failed the
-    first,
+    `polish_solve`, with H and H^-1 compact when the caller supplies a
+    block-diagonal closed form, dense otherwise), the second compacted to
+    the scenarios that failed the first; without a carried cache, the
+    plain Schur polish (`_polish`) instead,
   * a staged, compacted tail rescue with compensated refinement.
 
 Problem form:  min 1/2 x^T H x + g^T x   s.t.  l <= A x <= u.
@@ -33,6 +36,7 @@ import torch
 from quadrupedwholebodycontroller_tpu_torch.config import QPSolverParams
 from quadrupedwholebodycontroller_tpu_torch.ops import compensated as comp
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (
+    admm,
     admm_zy,
     polish,
     prepare,
@@ -40,6 +44,7 @@ from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (
 from quadrupedwholebodycontroller_tpu_torch.ops.linalg import (
     ns_inverse,
     ns_inverse_warm_shared,
+    solve_kkt_schur,
 )
 
 HOST_SYNCS = 0   # device-to-host reads made to decide a branch
@@ -87,7 +92,8 @@ class QPCache(NamedTuple):
     the matmul-only inverses.  Always batch-major."""
 
     kinv: torch.Tensor  # (B, n, n) inverse of the scaled ADMM matrix K
-    hinv: torch.Tensor  # (B, n, n) slot of a dense polish H^-1 (carried through)
+    hinv: torch.Tensor  # (B, n, n) dense polish H^-1 (carried through when
+                        # the caller supplies a compact closed form)
     sinv: torch.Tensor  # (B, m, m) inverse of the last polish Schur complement
 
     @classmethod
@@ -130,8 +136,12 @@ def _take_state(s: QPState, idx) -> QPState:
     return QPState(x=_take(s.x, idx), z=_take(s.z, idx), y=_take(s.y, idx))
 
 
-def _take_compact(t, idx):
-    return (_take(t[0], idx), _take(t[1], idx), t[2])
+def _take_h(t, idx):
+    """Gather scenarios of a polish H or H^-1: dense (B, n, n), compact
+    (diag, blk, start), or None (no polish)."""
+    if isinstance(t, tuple):
+        return (_take(t[0], idx), _take(t[1], idx), t[2])
+    return None if t is None else _take(t, idx)
 
 
 def _bound_finite(x):
@@ -147,6 +157,11 @@ def _blockdiag_dense(compact):
     out = torch.diag_embed(diag)
     out[:, start:start + k, start:start + k] = blk
     return out
+
+
+def _dense_h(t):
+    """A polish H or H^-1 as a dense (B, n, n) tensor."""
+    return _blockdiag_dense(t) if isinstance(t, tuple) else t
 
 
 def _finite_bound_scale(data: QPData):
@@ -300,7 +315,7 @@ def _polish_comp(data: QPData, state: QPState, params: QPSolverParams, Hinv):
     eye_n = torch.eye(n, dtype=dtype, device=data.H.device)
     da, b = _assemble_active(data, state)
     Hreg = data.H + params.polish_reg * eye_n
-    Hinv_d = _blockdiag_dense(Hinv)
+    Hinv_d = _dense_h(Hinv)
     Bm = da[:, :, None] * data.A
     Bt = Bm.transpose(-1, -2)
     diag_S = params.polish_reg * da + (1.0 - da)
@@ -329,6 +344,21 @@ def _polish_comp(data: QPData, state: QPState, params: QPSolverParams, Hinv):
     return pol, pr, du
 
 
+def _polish(data: QPData, state: QPState, params: QPSolverParams, Hinv):
+    """Active-set KKT solve from `state`'s active-set estimate with the
+    plain Schur pipeline (`linalg.solve_kkt_schur`, a cold Schur inverse)
+    and the dense round-invariant H^-1: the polish of a solve without a
+    carried cache (the JAX package's single-sample `_polish`, batched)."""
+    n = data.H.shape[-1]
+    da, b = _assemble_active(data, state)
+    x, y = solve_kkt_schur(
+        data.H + params.polish_reg * torch.eye(n, dtype=data.H.dtype, device=data.H.device),
+        da[:, :, None] * data.A, da, data.g, b, reg=params.polish_reg,
+        iters=params.ns_iters, refine=params.polish_refine, Hinv=Hinv,
+    )
+    return QPState(x=x, z=torch.minimum(torch.maximum(_mv(data.A, x), data.l), data.u), y=y)
+
+
 def _polish_batched_kernel(data: QPData, params: QPSolverParams, H_reg, Hinv,
                            sinv_fn, da_b):
     """One polish round: plain tensor code assembles the Schur matrix (only
@@ -346,9 +376,9 @@ def _polish_batched_kernel(data: QPData, params: QPSolverParams, H_reg, Hinv,
         if idx is None:
             da_, A_, Hinv_ = da, data.A, Hinv
         else:
-            da_, A_, Hinv_ = _take(da, idx), _take(data.A, idx), _take_compact(Hinv, idx)
+            da_, A_, Hinv_ = _take(da, idx), _take(data.A, idx), _take_h(Hinv, idx)
         diag_S = params.polish_reg * da_ + (1.0 - da_)
-        G2 = A_ @ _blockdiag_dense(Hinv_) @ A_.transpose(-1, -2)
+        G2 = A_ @ _dense_h(Hinv_) @ A_.transpose(-1, -2)
         return da_[:, :, None] * da_[:, None, :] * G2 + torch.diag_embed(diag_S)
 
     sinv = sinv_fn(S_thunk)
@@ -366,29 +396,25 @@ _LATER = {
 }
 
 
-def _check_supported(params: QPSolverParams, backend, cache, hinv_fn):
+def _check_supported(params: QPSolverParams, backend):
     if backend != "kernel":
         raise NotImplementedError(
             f"backend={backend!r}: only the kernel path is ported; the "
             "single-sample reference solve comes with a later slice")
-    if cache is None:
-        raise NotImplementedError(
-            "solve without a carried QPCache: a later slice of the port")
-    if hinv_fn is None:
-        raise NotImplementedError(
-            "dense-H polish (hinv_fn=None): a later slice of the port")
-    if params.sigma != 0.0:
-        raise NotImplementedError(
-            "sigma > 0 (x-space ADMM kernels): a later slice of the port")
-    if not params.polish or params.ns_warm_iters_polish != 0:
-        raise NotImplementedError(
-            "polish=False / warm-iterated polish Schur inverse: a later "
-            "slice of the port")
     for name, off in _LATER.items():
         if getattr(params, name) != off:
             raise NotImplementedError(
                 f"{name}={getattr(params, name)!r}: this option ships off "
                 "and is not ported (a later slice, if ever needed)")
+
+
+def _admm_res(params: QPSolverParams, *args, iters: int):
+    """The ADMM kernel with its residual epilogue that `params.sigma` picks:
+    the constraint-space iteration at sigma = 0, the x-space one above."""
+    if params.sigma == 0.0:
+        return admm_zy.admm_zy_iterations_res(*args, iters=iters, alpha=params.alpha)
+    return admm.admm_iterations_res(*args, iters=iters, sigma=params.sigma,
+                                    alpha=params.alpha)
 
 
 @torch.no_grad()
@@ -402,25 +428,30 @@ def solve_batched(
     hinv_fn=None,
     prepared=None,
 ):
-    """Batched solve; returns (state, info, new_cache).  Runs under
-    `torch.no_grad()`: this is the serving path, no gradient flows.
+    """Batched solve; returns (state, info, new_cache) with a cache, else
+    (state, info).  Runs under `torch.no_grad()`: this is the serving path,
+    no gradient flows.
 
     cache / use_warm: carried QPCache of last cycle's inverses and the warm
     gate, a scalar or a (B,) bool mask.  With a mask (and
     0 < cold_batch < B) the warm update runs for the whole batch and the
     cold scenarios are re-inverted on a compacted top-k sub-batch; more
     cold scenarios than cold_batch fall back to the full-batch cold
-    inverse.  Pass False on the first cycle.
+    inverse.  Pass False on the first cycle.  Without a cache every inverse
+    is cold and the polish rounds run the plain Schur polish (`_polish`).
 
     hinv_fn: callable (H (B, n, n), reg) -> COMPACT block-diagonal inverse
     (diag (B, n), blk (B, k, k), start) of the regularized polish Hessian.
+    None: the dense regularized H^-1 comes from the same gated inverse as
+    K^-1, warm-started from `cache.hinv`, and is carried in the new cache.
 
     prepared: the 11 tensors of `prepare.prepare_scaled` for this `data` and
     `warm`, already computed (the fused setup kernel's tail): the prepare
     stage is skipped and they are taken as they are."""
-    _check_supported(params, backend, cache, hinv_fn)
+    _check_supported(params, backend)
     B, m, n = data.A.shape
     dtype, dev = data.H.dtype, data.H.device
+    eye_n = torch.eye(n, dtype=dtype, device=dev)
 
     if prepared is None:
         prepared = prepare.prepare_scaled(
@@ -429,15 +460,19 @@ def solve_batched(
             rho_eq_scale=params.rho_eq_scale,
         )
     sH, sA, sg, sl, su, rho, wxs, wzs, wys, dscale, escale = prepared
-    K = sH + (sA.transpose(-1, -2) * rho[:, None, :]) @ sA
+    K = sH + params.sigma * eye_n if params.sigma else sH
+    K = K + (sA.transpose(-1, -2) * rho[:, None, :]) @ sA
+    wi_polish = (params.ns_warm_iters_polish if params.ns_warm_iters_polish >= 0
+                 else params.ns_warm_iters)
 
     # ---- warm-cache gate ----
-    # per-scenario: a (B,) mask with 0 < cold_batch < B; else batch-level
+    # per-scenario: a (B,) mask with 0 < cold_batch < B; else batch-level;
+    # no cache: every inverse is cold
     kcold = params.cold_batch
     warm_mask = cold_idx = None
     n_cold = 0
     warm_all = False
-    if use_warm is not None:
+    if cache is not None and use_warm is not None:
         use_warm = torch.as_tensor(use_warm, device=dev)
         if use_warm.ndim >= 1 and 0 < kcold < use_warm.shape[0]:
             warm_mask = use_warm
@@ -459,29 +494,31 @@ def solve_batched(
         Xc = torch.where(sel[:, None, None], _take(X, cold_idx), Xc)
         return _put(X, cold_idx, Xc)
 
-    def warm_update(M, warm_arr):
-        wi = params.ns_warm_iters
-        if wi >= 1:
-            return ns_inverse_warm_shared(M, warm_arr, wi)
-        return ns_inverse(M, params.ns_iters, warm=warm_arr, warm_iters=0)
+    def make_inv(warm_arr, wi):
+        """The inverse of M gated on the warm mask or the scalar gate:
+        warm scenarios restart from `warm_arr` (wi >= 1 Newton-Schulz
+        iterations, or its safeguarded pass-through at wi = 0), cold ones
+        get a cold inverse."""
+        def warm_update(M):
+            if wi >= 1:
+                return ns_inverse_warm_shared(M, warm_arr, wi)
+            return ns_inverse(M, params.ns_iters, warm=warm_arr, warm_iters=0)
 
-    if warm_mask is not None:
-        if n_cold > kcold:
-            Kinv = ns_inverse(K, params.ns_iters)
-        else:
-            Kinv = warm_update(K, cache.kinv)
-            if n_cold > 0:
-                Kinv = cold_fix(Kinv, _take(K, cold_idx))
-    elif warm_all:
-        Kinv = warm_update(K, cache.kinv)
-    else:
-        Kinv = ns_inverse(K, params.ns_iters)
+        def inv(M):
+            if warm_mask is not None and n_cold <= kcold:
+                X = warm_update(M)
+                return cold_fix(X, _take(M, cold_idx)) if n_cold > 0 else X
+            if warm_mask is None and warm_all:
+                return warm_update(M)
+            return ns_inverse(M, params.ns_iters)
+
+        return inv
+
+    Kinv = make_inv(None if cache is None else cache.kinv, params.ns_warm_iters)(K)
 
     def run_admm(x0, z0, y0, iters):
-        return admm_zy.admm_zy_iterations_res(
-            Kinv, sA, sg, sl, su, rho, x0, z0, y0, sH, data.l, data.u,
-            dscale, escale, iters=iters, alpha=params.alpha,
-        )
+        return _admm_res(params, Kinv, sA, sg, sl, su, rho, x0, z0, y0, sH,
+                         data.l, data.u, dscale, escale, iters=iters)
 
     x, z, y, pr_b, du_b, sv_b = run_admm(wxs, wzs, wys, params.iterations)
     # cold start (any scenario with an all-zero warm state): spend the init
@@ -491,28 +528,37 @@ def solve_batched(
         per_cold = ~((warm.x != 0).any(-1) | (warm.z != 0).any(-1) | (warm.y != 0).any(-1))
         if _host(per_cold.any()):
             x, z, y, pr_b, du_b, sv_b = run_admm(x, z, y, extra)
-    admm = QPState(x=dscale * x, z=z / escale, y=escale * y)
+    best = QPState(x=dscale * x, z=z / escale, y=escale * y)
 
-    # ---- polish inputs: compact closed-form H^-1, compact regularized H ----
-    Hinv_polish = hinv_fn(data.H, params.polish_reg)
-    _, hblk, hstart = Hinv_polish
-    k_ = hblk.shape[-1]
-    diag_reg = torch.diagonal(data.H, dim1=-2, dim2=-1) + params.polish_reg
-    diag_reg = torch.cat(
-        [diag_reg[:, :hstart], torch.zeros_like(diag_reg[:, :k_]),
-         diag_reg[:, hstart + k_:]], dim=1)
-    blk_reg = data.H[:, hstart:hstart + k_, hstart:hstart + k_] \
-        + params.polish_reg * torch.eye(k_, dtype=dtype, device=dev)
-    H_polish = (diag_reg, blk_reg, hstart)
+    # ---- polish inputs: the regularized H and its inverse, compact from
+    # the caller's closed form or dense ----
+    H_polish = Hinv_polish = None
+    if params.polish and hinv_fn is not None:
+        Hinv_polish = hinv_fn(data.H, params.polish_reg)
+        _, hblk, hstart = Hinv_polish
+        k_ = hblk.shape[-1]
+        diag_reg = torch.diagonal(data.H, dim1=-2, dim2=-1) + params.polish_reg
+        diag_reg = torch.cat(
+            [diag_reg[:, :hstart], torch.zeros_like(diag_reg[:, :k_]),
+             diag_reg[:, hstart + k_:]], dim=1)
+        blk_reg = data.H[:, hstart:hstart + k_, hstart:hstart + k_] \
+            + params.polish_reg * torch.eye(k_, dtype=dtype, device=dev)
+        H_polish = (diag_reg, blk_reg, hstart)
+    elif params.polish:
+        H_polish = data.H + params.polish_reg * eye_n
+        Hinv_polish = make_inv(None if cache is None else cache.hinv, wi_polish)(H_polish)
 
     def sinv_cold(S_thunk):
         return ns_inverse(S_thunk(), params.ns_iters)
 
     def sinv_round1(S_thunk):
-        """Round 1 takes the carried Schur inverse as it is on warm
-        scenarios (a stale-but-finite cache is caught by the polish
-        acceptance residuals) and never assembles S for them; cold
-        scenarios are assembled and re-inverted compactly."""
+        """With wi_polish = 0, round 1 takes the carried Schur inverse as it
+        is on warm scenarios (a stale-but-finite cache is caught by the
+        polish acceptance residuals) and never assembles S for them; cold
+        scenarios are assembled and re-inverted compactly.  Otherwise the
+        Schur matrix is inverted through the gated warm update."""
+        if wi_polish != 0:
+            return make_inv(cache.sinv, wi_polish)(S_thunk())
         if warm_mask is not None:
             if n_cold > kcold:
                 return sinv_cold(S_thunk)
@@ -521,11 +567,10 @@ def solve_batched(
             return cache.sinv
         return cache.sinv if warm_all else sinv_cold(S_thunk)
 
-    best = admm
     # pr_b/du_b/sv_b came from the ADMM kernel's epilogue
     res_b = _finite_or_inf(pr_b, du_b)
     polished = torch.zeros_like(res_b, dtype=torch.bool)
-    sinv_last = cache.sinv
+    sinv_last = None if cache is None else cache.sinv
     # active-set DROP rule across polish rounds: the working iterate w_pol
     # follows the candidate chain even through rejections, and rows whose
     # candidate multiplier came out wrong-signed are banned from the next
@@ -538,71 +583,87 @@ def solve_batched(
     ok_prev = wrong_any_prev = None
     inf_r = torch.full_like(pr_b, float("inf"))
     k2 = params.drop_batch
-    for round_i in range(params.polish_rounds):
-        compact2 = round_i > 0 and 0 < k2 < B
-        if not compact2:
-            da, b = _masked(data, w_pol, banned)
-        if round_i == 0:
-            pol, sinv_last, pr_p, du_p, sv_p = _polish_batched_kernel(
-                data, params, H_polish, Hinv_polish, sinv_round1, (da, b))
+    for round_i in range(params.polish_rounds if params.polish else 0):
+        if cache is None:
+            # no carried Schur inverse to thread through: each round is the
+            # plain Schur polish from the best iterate
+            pol = _polish(data, best, params, _dense_h(Hinv_polish))
+            pr_p, du_p = kkt_residual(data, pol.x, pol.y)
+            sv_p = _sign_violation(data, pol.x, pol.y)
         else:
-            # round 2+ runs only for the scenarios the PREVIOUS round
-            # failed: a drop fired (wrong-signed candidate multiplier) or
-            # the candidate was rejected outright.  Their active set
-            # differs from round 1's, so the carried inverse is an inverse
-            # of the wrong Schur matrix: pay the cold inverse.
-            changed_i = wrong_any_prev | ~ok_prev
-            fire = _host(changed_i.any())
-            if not fire:
-                pol, pr_p, du_p, sv_p = best, inf_r, inf_r, inf_r
-                if compact2:
-                    wrong_any_prev = torch.zeros_like(changed_i)
-            elif compact2:
-                # COMPACTED: rank the failed scenarios by severity and take
-                # the k2 worst, a hard cap with no full-batch fallback;
-                # scenarios beyond it keep round-1 results and the staged
-                # rescue remains the guarantee
-                score = torch.where(changed_i, torch.maximum(res_b, sv_b), -inf_r)
-                idx2 = torch.topk(score, k2).indices
-                data_c = QPData(*(_take(leaf, idx2) for leaf in data))
-                w_c = _take_state(w_pol, idx2)
-                banned_c = _take(banned, idx2)
-                da_c, b_c = _masked(data_c, w_c, banned_c)
-                pol_c, _, pr_c, du_c, sv_c = _polish_batched_kernel(
-                    data_c, params, _take_compact(H_polish, idx2),
-                    _take_compact(Hinv_polish, idx2),
-                    lambda S_thunk: ns_inverse(
-                        S_thunk(), params.ns_iters,
-                        body_prec=params.ns_cold_prec or None,
-                        tail=params.ns_cold_tail),
-                    (da_c, b_c),
-                )
-                # topk pads with unchanged rows when fewer than k2 scenarios
-                # changed: mask their candidates out
-                sel = _take(changed_i, idx2)
-                inf_c = torch.full_like(pr_c, float("inf"))
-                pr_c = torch.where(sel, pr_c, inf_c)
-                du_c = torch.where(sel, du_c, inf_c)
-                sv_c = torch.where(sel, sv_c, inf_c)
-                pol = QPState(x=_put(best.x, idx2, pol_c.x),
-                              z=_put(best.z, idx2, pol_c.z),
-                              y=_put(best.y, idx2, pol_c.y))
-                wrong_c = sel[:, None] & _wrong_signed(
-                    data_c, da_c, b_c, pol_c.y, _take(eq_rows, idx2),
-                    _take(tol_drop, idx2))
-                banned = _put(banned, idx2, banned_c | wrong_c)
-                wrong_any_prev = _put(torch.zeros_like(changed_i), idx2,
-                                      wrong_c.any(-1))
-                pr_p, du_p, sv_p = (_put(inf_r, idx2, pr_c), _put(inf_r, idx2, du_c),
-                                    _put(inf_r, idx2, sv_c))
-            else:
+            compact2 = round_i > 0 and 0 < k2 < B
+            if not compact2:
+                da, b = _masked(data, w_pol, banned)
+            if round_i == 0:
                 pol, sinv_last, pr_p, du_p, sv_p = _polish_batched_kernel(
-                    data, params, H_polish, Hinv_polish, sinv_cold, (da, b))
-        if not compact2:
-            wrong = _wrong_signed(data, da, b, pol.y, eq_rows, tol_drop)
-            banned = banned | wrong
-            wrong_any_prev = wrong.any(-1)
-        w_pol = pol
+                    data, params, H_polish, Hinv_polish, sinv_round1, (da, b))
+            else:
+                # round 2+ runs only for the scenarios the PREVIOUS round
+                # failed: a drop fired (wrong-signed candidate multiplier)
+                # or the candidate was rejected outright.  Their active set
+                # differs from round 1's, so the carried inverse is an
+                # inverse of the wrong Schur matrix: pay the cold inverse
+                # (or, with wi_polish > 0, warm it from round 1's).
+                changed_i = wrong_any_prev | ~ok_prev
+                fire = _host(changed_i.any())
+                if not fire:
+                    pol, pr_p, du_p, sv_p = best, inf_r, inf_r, inf_r
+                    if compact2:
+                        wrong_any_prev = torch.zeros_like(changed_i)
+                elif compact2:
+                    # COMPACTED: rank the failed scenarios by severity and
+                    # take the k2 worst, a hard cap with no full-batch
+                    # fallback; scenarios beyond it keep round-1 results and
+                    # the staged rescue remains the guarantee
+                    score = torch.where(changed_i, torch.maximum(res_b, sv_b), -inf_r)
+                    idx2 = torch.topk(score, k2).indices
+                    data_c = QPData(*(_take(leaf, idx2) for leaf in data))
+                    w_c = _take_state(w_pol, idx2)
+                    banned_c = _take(banned, idx2)
+                    da_c, b_c = _masked(data_c, w_c, banned_c)
+                    pol_c, _, pr_c, du_c, sv_c = _polish_batched_kernel(
+                        data_c, params, _take_h(H_polish, idx2),
+                        _take_h(Hinv_polish, idx2),
+                        lambda S_thunk: ns_inverse(
+                            S_thunk(), params.ns_iters,
+                            body_prec=params.ns_cold_prec or None,
+                            tail=params.ns_cold_tail),
+                        (da_c, b_c),
+                    )
+                    # topk pads with unchanged rows when fewer than k2
+                    # scenarios changed: mask their candidates out
+                    sel = _take(changed_i, idx2)
+                    inf_c = torch.full_like(pr_c, float("inf"))
+                    pr_c = torch.where(sel, pr_c, inf_c)
+                    du_c = torch.where(sel, du_c, inf_c)
+                    sv_c = torch.where(sel, sv_c, inf_c)
+                    pol = QPState(x=_put(best.x, idx2, pol_c.x),
+                                  z=_put(best.z, idx2, pol_c.z),
+                                  y=_put(best.y, idx2, pol_c.y))
+                    wrong_c = sel[:, None] & _wrong_signed(
+                        data_c, da_c, b_c, pol_c.y, _take(eq_rows, idx2),
+                        _take(tol_drop, idx2))
+                    banned = _put(banned, idx2, banned_c | wrong_c)
+                    wrong_any_prev = _put(torch.zeros_like(changed_i), idx2,
+                                          wrong_c.any(-1))
+                    pr_p, du_p, sv_p = (_put(inf_r, idx2, pr_c), _put(inf_r, idx2, du_c),
+                                        _put(inf_r, idx2, sv_c))
+                else:
+                    sinv_prev = sinv_last
+
+                    def sinv_round2(S_thunk):
+                        if wi_polish == 0:
+                            return sinv_cold(S_thunk)
+                        return ns_inverse(S_thunk(), params.ns_iters, warm=sinv_prev,
+                                          warm_iters=wi_polish)
+
+                    pol, sinv_last, pr_p, du_p, sv_p = _polish_batched_kernel(
+                        data, params, H_polish, Hinv_polish, sinv_round2, (da, b))
+            if not compact2:
+                wrong = _wrong_signed(data, da, b, pol.y, eq_rows, tol_drop)
+                banned = banned | wrong
+                wrong_any_prev = wrong.any(-1)
+            w_pol = pol
         res_p = _finite_or_inf(pr_p, du_p)
         ok = torch.maximum(res_p, sv_p) <= torch.maximum(res_b, sv_b)
         oke = ok[:, None]
@@ -622,29 +683,32 @@ def solve_batched(
             (K, sA, sg, sl, su, rho, sH, dscale, escale), H_polish, Hinv_polish)
 
     info = QPInfo(pr_b, du_b, res_b, polished)
-    # the compact closed-form H^-1 is recomputed per step and never read
-    # back from the cache: carry the slot through
-    return best, info, QPCache(kinv=Kinv, hinv=cache.hinv, sinv=sinv_last)
+    if cache is None:
+        return best, info
+    # a compact closed-form H^-1 is recomputed per step and never read back
+    # from the cache: carry the slot through
+    hinv = Hinv_polish if isinstance(Hinv_polish, torch.Tensor) else cache.hinv
+    return best, info, QPCache(kinv=Kinv, hinv=hinv, sinv=sinv_last)
 
 
 def _rescue_core(params, best, pr_b, du_b, res_b, polished, scaled, data, H_pol,
                  Hinv_pol):
     """One rescue pass over a (sub-)batch whose problem is ALREADY scaled:
-    a cold K^-1, the ADMM recursion continued from the best iterate,
-    cold-Schur polish rounds with the drop rule (round 2+ compacted to the
-    scenarios still above threshold), and a compensated-refinement
-    candidate.  Every candidate is accepted per scenario only where the
-    sign-augmented residual improves.
+    a cold K^-1, the ADMM recursion (the kernel `params.sigma` picks)
+    continued from the best iterate, and, with `params.polish`, cold-Schur
+    polish rounds with the drop rule (round 2+ compacted to the scenarios
+    still above threshold) and a compensated-refinement candidate.  Every
+    candidate is accepted per scenario only where the sign-augmented
+    residual improves.
 
     The cold chains run at full float32 precision whatever
     params.ns_cold_prec says: the rescue is the tail guarantee."""
     K_, sA_, sg_, sl_, su_, rho_, sH_, d_, e_ = scaled
     Kinv_cold = ns_inverse(K_, params.ns_iters)
-    x, z, y, pr_c, du_c, sv_c = admm_zy.admm_zy_iterations_res(
-        Kinv_cold, sA_, sg_, sl_, su_, rho_,
+    x, z, y, pr_c, du_c, sv_c = _admm_res(
+        params, Kinv_cold, sA_, sg_, sl_, su_, rho_,
         best.x / d_, best.z * e_, best.y / e_,
-        sH_, data.l, data.u, d_, e_,
-        iters=params.rescue_iterations, alpha=params.alpha,
+        sH_, data.l, data.u, d_, e_, iters=params.rescue_iterations,
     )
     cand = QPState(x=d_ * x, z=z / e_, y=e_ * y)
     best, pr_b, du_b, res_b, polished = _accept_better(
@@ -652,6 +716,8 @@ def _rescue_core(params, best, pr_b, du_b, res_b, polished, scaled, data, H_pol,
         _finite_or_inf(pr_c, du_c), data,
         cand_polished=torch.zeros_like(polished), sv_cand=sv_c,
     )
+    if not params.polish:
+        return best, pr_b, du_b, res_b, polished
 
     def sinv_cold(S_thunk):
         return ns_inverse(S_thunk(), params.ns_iters)
@@ -689,8 +755,8 @@ def _rescue_core(params, best, pr_b, du_b, res_b, polished, scaled, data, H_pol,
         banned_s = _take(banned, idx3)
         da_r, b_r = _masked(data_s, w_s, banned_s)
         pol_s, _, pr_s, du_s, sv_s = _polish_batched_kernel(
-            data_s, params, _take_compact(H_pol, idx3),
-            _take_compact(Hinv_pol, idx3), sinv_cold, (da_r, b_r))
+            data_s, params, _take_h(H_pol, idx3),
+            _take_h(Hinv_pol, idx3), sinv_cold, (da_r, b_r))
         # topk pads with below-threshold rows when fewer than k3 are still
         # flagged: mask their candidates out
         sel = _take(still, idx3)
@@ -750,7 +816,7 @@ def _rescue_staged(data, params, best, pr_b, du_b, res_b, polished, sv_b, scaled
                 params, _take_state(best, idx), _take(pr_b, idx), _take(du_b, idx),
                 _take(res_b, idx), _take(polished, idx),
                 tuple(_take(a, idx) for a in scaled), data_c,
-                _take_compact(H_pol, idx), _take_compact(Hinv_pol, idx),
+                _take_h(H_pol, idx), _take_h(Hinv_pol, idx),
             )
             best = QPState(x=_put(best.x, idx, best_c.x), z=_put(best.z, idx, best_c.z),
                            y=_put(best.y, idx, best_c.y))

@@ -44,17 +44,18 @@ def test_port_has_the_expected_modules():
                  "ops/linalg.py", "ops/compensated.py", "ops/kinematics.py",
                  "ops/dynamics.py", "ops/centroidal.py", "ops/spatial.py",
                  "ops/kernels/build.py", "ops/kernels/prepare.py",
-                 "ops/kernels/admm_zy.py", "ops/kernels/polish.py",
-                 "ops/kernels/setup.py", "replay.py",
+                 "ops/kernels/admm_zy.py", "ops/kernels/admm.py",
+                 "ops/kernels/polish.py", "ops/kernels/setup.py",
+                 "ops/kernels/ns_warm.py", "replay.py",
                  "models/anymal.py", "models/robot_model.py"):
         assert want in rel, want
-    for src in ("common.cuh", "prepare_tail.cuh", "prepare.cu", "admm_zy.cu",
-                "polish.cu", "setup.cu"):
+    for src in ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh", "prepare.cu",
+                "admm_zy.cu", "admm.cu", "polish.cu", "setup.cu", "ns_warm.cu"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
     assert os.path.exists(os.path.join(PORT, "models", "data", "anymal_d.json"))
 
 
-KERNEL_MODULES = ("prepare", "admm_zy", "polish", "setup")
+KERNEL_MODULES = ("prepare", "admm_zy", "admm", "polish", "setup", "ns_warm")
 
 
 def test_prepare_and_setup_share_one_prepare_tail():
@@ -66,6 +67,17 @@ def test_prepare_and_setup_share_one_prepare_tail():
         text = read(src)
         assert '#include "prepare_tail.cuh"' in text and "prepare_tail(" in text
         assert "s < sweeps" not in text and "rho_eq : rho0" not in text
+
+
+def test_admm_kernels_share_one_epilogue():
+    """The residual epilogue of the two ADMM kernels is one device function
+    in admm_epilogue.cuh; neither source carries a copy."""
+    read = lambda f: open(os.path.join(PORT, "csrc", f)).read()
+    assert "void admm_epilogue(" in read("admm_epilogue.cuh")
+    for src in ("admm_zy.cu", "admm.cu"):
+        text = read(src)
+        assert '#include "admm_epilogue.cuh"' in text and "admm_epilogue(" in text
+        assert "kkt_epilogue(" not in text and "Hs + bn * n" not in text
 
 
 @pytest.mark.parametrize("name", KERNEL_MODULES)
@@ -105,7 +117,7 @@ def test_cpu_tensors_take_the_plain_versions():
     from quadrupedwholebodycontroller_tpu_torch.models import anymal_d_model
     from quadrupedwholebodycontroller_tpu_torch.ops import kernels
     from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (
-        admm_zy, polish, prepare, setup)
+        admm, admm_zy, ns_warm, polish, prepare, setup)
 
     kernels.reset_counts()
     H, A, g, l, u, wx, wz, wy = _cpu_problem()
@@ -121,8 +133,15 @@ def test_cpu_tensors_take_the_plain_versions():
     blk = torch.eye(2, dtype=H.dtype).expand(B, 2, 2).contiguous()
     da = torch.ones(B, m, dtype=H.dtype)
     Sinv = torch.eye(m, dtype=H.dtype).expand(B, m, m).contiguous()
+    admm.admm_iterations_res(Kinv, sA, sg, sl, su, rho, wxs, wzs, wys, sH,
+                             l, u, d, e, iters=3, sigma=1e-6, alpha=1.6)
+    admm.admm_iterations(Kinv, sA, sg, sl, su, rho, wxs, wzs, wys,
+                         iters=3, sigma=1e-6, alpha=1.6)
     polish.polish_solve((diag, blk, 2), (diag, blk, 2), Sinv, A, da, g, u, l, u,
                         refine=1, reg=1e-9)
+    Hd = torch.diag_embed(diag + 1.0)
+    polish.polish_solve(Hd, Hd, Sinv, A, da, g, u, l, u, refine=1, reg=1e-9)
+    ns_warm.ns_inverse_warm(H, torch.linalg.inv(H), 2)
     obs = wbc.RobotObservation(
         base_R=torch.eye(3, dtype=H.dtype).expand(2, 3, 3), base_p=torch.zeros(2, 3, dtype=H.dtype),
         base_vel=torch.zeros(2, 6, dtype=H.dtype), q=torch.zeros(2, 12, dtype=H.dtype),
@@ -131,11 +150,11 @@ def test_cpu_tensors_take_the_plain_versions():
                         wbc.Reference.standing(ControllerParams(), 2, H.dtype, "cpu"),
                         wbc.init_carry(2, H.dtype, "cpu"), True)
     assert kernels.plain_counts() == {
-        "prepare_scaled": 1, "admm_zy_iterations_res": 1, "polish_solve_compact": 1,
-        "setup_batched": 1}
-    assert kernels.launch_counts() == {
-        "prepare_scaled": 0, "admm_zy_iterations_res": 0, "polish_solve_compact": 0,
-        "setup_batched": 0}
+        "prepare_scaled": 1, "admm_zy_iterations_res": 1, "admm_iterations_res": 1,
+        "admm_iterations": 1, "polish_solve_compact": 1, "polish_solve_dense": 1,
+        "setup_batched": 1, "ns_inverse_warm": 1}
+    assert not any(kernels.launch_counts().values())
+    assert len(kernels.launch_counts()) == 8
 
 
 def test_unported_options_raise():
@@ -162,16 +181,24 @@ def test_unported_options_raise():
             step(setup_backend=backend, cp=ControllerParams(exact_derivatives=True))
     with pytest.raises(ValueError, match="setup_backend"):
         step(setup_backend="pallas")
-    for bad in (dict(sigma=1e-6), dict(comp_final_refine=1), dict(drop_warm_iters=4),
-                dict(ns_warm_iters_polish=1), dict(cond_hoist=1)):
-        with pytest.raises(NotImplementedError):
+    for bad in (dict(comp_final_refine=1), dict(drop_warm_iters=4), dict(cond_hoist=1),
+                dict(drop_fire_tol=1e-3), dict(drop_sinv_refresh=1), dict(drop_ns_iters=5),
+                dict(drop_approx_rank=1)):
+        with pytest.raises(NotImplementedError, match="not ported"):
             step(QPSolverParams(**bad))
     with pytest.raises(NotImplementedError):
         step(cp=ControllerParams(exact_derivatives=True))
     with pytest.raises(NotImplementedError):
         step(qp_backend="xla")
-    with pytest.raises(NotImplementedError):
-        step(qp_cache=None)
+    H, A, g, l, u = _cpu_problem()[:5]
+    with pytest.raises(NotImplementedError, match="kernel path"):
+        qp.solve_batched(qp.QPData(H=H, g=g, A=A, l=l, u=u),
+                         qp.QPState.zeros(3, 6, 8, torch.float64, "cpu"), backend="torch")
+    # sigma > 0, a warm-iterated polish Schur inverse and a step without a
+    # cache are ported now: they run
+    for ok in (dict(sigma=1e-6), dict(ns_warm_iters_polish=1)):
+        assert len(step(QPSolverParams(**ok))) == 3
+    assert len(step(qp_cache=None)) == 2
 
 
 def test_tf32_matmul_is_off():
