@@ -6,10 +6,11 @@
 Needs one CUDA card and `nvcc`; exits non-zero without them.  It
 
   1. builds the CUDA kernels from `quadrupedwholebodycontroller_tpu_torch/csrc`,
-  2. holds each of the eight kernels against its plain PyTorch version on the
+  2. holds each of the nine kernels against its plain PyTorch version on the
      card, at the main path's shapes (B = 4096, n = 42, m = 70) on inputs
      from a recorded walking step, each output to its own tolerance, in
-     float32 and float64, plus a ragged B = 37,
+     float32 and float64, plus a ragged B = 37 (the setup kernel's exact
+     mode, K3x, also on a step far from any contact switch),
   3. drives the paths of the batched 400 Hz control cycle
      (`control.wbc.wbc_step_batched`, B = 4096, float32) over the recorded
      walk, each with the launch counters zeroed before and read after: the
@@ -26,7 +27,16 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  It
      without its epilogue, the warm Newton-Schulz update) through their
      entry points over the same QPs,
   5. replays the unperturbed walk at B = 8 through the main path against the
-     float64 torque record `data/torque_cpu64.npz`.
+     float64 torque record `data/torque_cpu64.npz`,
+  6. drives the exact-derivative paths over steps 0..69: the setup kernel's
+     exact mode (K3x) under the shipped solver parameters (printed) and with
+     `rescue_batch` = 2048 (asserted), and the finite-difference kernel plus
+     the forward-mode-AD epilogue (its oracle), held against each other,
+  7. runs the closed loop (`sim.rollout.batched_rollout`: static-walk
+     planner -> control step -> physics) at B = 4096 for 500 control steps,
+     with finite differences, and with exact derivatives at `rescue_batch` =
+     2048 (printed, over the first 200 steps, which hold its burst) and with
+     the rescue sized to the burst (asserted).
 
 Every line it prints is one JSON object; the last is
 `{"ok": true, "device": {...}}`.  Any failed check raises.
@@ -52,6 +62,7 @@ sys.path.insert(0, ROOT)
 from quadrupedwholebodycontroller_tpu_torch import replay  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.config import (  # noqa: E402
     ControllerParams,
+    PlannerParams,
     QPSolverParams,
 )
 from quadrupedwholebodycontroller_tpu_torch.control import wbc  # noqa: E402
@@ -71,6 +82,8 @@ from quadrupedwholebodycontroller_tpu_torch.ops.linalg import (  # noqa: E402
     ns_inverse,
     ns_inverse_warm_shared,
 )
+from quadrupedwholebodycontroller_tpu_torch.planner import gait  # noqa: E402
+from quadrupedwholebodycontroller_tpu_torch.sim import SimParams, rollout  # noqa: E402
 
 DEV = "cuda"
 N, M, KBLK = 42, 70, 12
@@ -112,16 +125,20 @@ TORQUE_F64 = np.load(os.path.join(ROOT, "data", "torque_cpu64.npz"))["tau"]
 # float64: 1e-9 relative everywhere, plus 1e-10 absolute (pr, du, sv are
 # relative quantities, ~1e-12 on a converged float64 iterate).
 #
-# The setup kernel (both variants) against `setup_batched_plain`, which is
-# another algebra (dense 18 x 18 products against the kernel's blocks), on a
-# warmed carry with a contact switch in part of the batch (SETUP_TOL_F32).
+# The setup kernel (both variants, and K3x, its exact mode) against
+# `setup_batched_plain`, which is another algebra (dense 18 x 18 products
+# against the kernel's blocks; for K3x forward-mode AD against the kernel's
+# hand-propagated tangents), on a warmed carry with a contact switch in part
+# of the batch, and for K3x also far from any switch (SETUP_TOL_F32, the same
+# table for both modes, except K3x's tdot_inv below).
 # Each float32 bound is about 20x what an H100 measured on these inputs, in
 # share of the output's scale unless it says "elem":
 #   * A, the new T and J, the kinematic outputs: sums of a few dozen products
 #     of O(1) terms (measured 2e-7 .. 4e-7); H: 1 and 1000 on its diagonal
 #     set the scale (5e-10);
 #   * the finite-difference outputs divide a float32 rounding by dt = 1/400
-#     and map it through T^-1: tdot_inv 4e-3 (measured 2e-4);
+#     and map it through T^-1: tdot_inv 4e-3 (measured 2e-4); K3x forms it
+#     from analytic tangents: 2e-5 (measured 7.6e-7);
 #   * h_c, g, l, u are cancellations of large terms (Coriolis and gravity
 #     against M d(T^-1)/dt u; gains of 6000 against pose errors): a bound in
 #     share of the scale (measured 4e-6, 2e-6, 4e-7), and the float64 guard
@@ -161,8 +178,9 @@ K1, K2, K3, K4 = ("admm_zy_iterations_res", "polish_solve_compact", "setup_batch
                   "prepare_scaled")
 K5, K6, K7, K8 = ("admm_iterations_res", "admm_iterations", "polish_solve_dense",
                   "ns_inverse_warm")
+K3X = "setup_batched_exact"
 OUTPUTS = {K4: PREP_OUT, K1: ADMM_OUT, K2: POLISH_OUT, K3: SETUP_OUT,
-           K5: ADMM_OUT, K6: ADMM_OUT[:3], K7: POLISH_OUT, K8: ["X"]}
+           K5: ADMM_OUT, K6: ADMM_OUT[:3], K7: POLISH_OUT, K8: ["X"], K3X: SETUP_OUT}
 FLOOR = None     # at the rounding floor: float64 guard + resolving case
 EXACT = (0.0, 0.0)
 ELEM = "elem"    # (ELEM, rtol): |kernel - plain| <= rtol |plain| on every entry
@@ -178,10 +196,14 @@ SETUP_TOL_F32 = {
     "su": (1e-5, 0.0), "rho": EXACT, "wxs": (ELEM, 1e-5), "wzs": (ELEM, 1e-5),
     "wys": (ELEM, 1e-5), "d": (ELEM, 1e-5), "e": (ELEM, 1e-5),
 }
+SETUP_TOL_F32_EXACT = {**SETUP_TOL_F32, "tdot_inv": (2e-5, 0.0)}
 SETUP_GUARDED = ("h_c", "g", "l", "u")   # cancellations: also the float64 guard
 TOL_F32 = {
     (K3, "main"): SETUP_TOL_F32,
     (K3, "plain_variant"): SETUP_TOL_F32,
+    (K3X, "main"): SETUP_TOL_F32_EXACT,
+    (K3X, "switch"): SETUP_TOL_F32_EXACT,
+    (K3X, "plain_variant"): SETUP_TOL_F32_EXACT,
     ("prepare_scaled", "main"): {o: (ELEM, 1e-5) for o in PREP_OUT},
     ("admm_zy_iterations_res", "main"): {
         "x": (1e-4, 0.0), "z": (1e-4, 0.0), "y": (5e-3, 0.0),
@@ -217,6 +239,7 @@ REPLACES = {
     K1: _JAX + "qp_kernel.py:243",
     K2: _JAX + "polish_kernel.py:276",
     K3: _JAX + "setup_kernel.py:1193",
+    K3X: _JAX + "setup_kernel.py:1255",
     K5: _JAX + "qp_kernel.py:438",
     K6: _JAX + "qp_kernel.py:363",
     K7: _JAX + "polish_kernel.py:134",
@@ -225,7 +248,7 @@ REPLACES = {
 _CSRC = "quadrupedwholebodycontroller_tpu_torch/csrc/"
 SOURCES = {K4: _CSRC + "prepare.cu", K1: _CSRC + "admm_zy.cu", K2: _CSRC + "polish.cu",
            K3: _CSRC + "setup.cu", K5: _CSRC + "admm.cu", K6: _CSRC + "admm.cu",
-           K7: _CSRC + "polish.cu", K8: _CSRC + "ns_warm.cu"}
+           K7: _CSRC + "polish.cu", K8: _CSRC + "ns_warm.cu", K3X: _CSRC + "setup.cu"}
 SIGMA = 1e-6     # the tuned proximal weight of the sigma path
 
 
@@ -349,33 +372,44 @@ def setup_flat(res):
     return tuple(o.to(res["A"].dtype) for o in outs)
 
 
-def setup_problem(batch: int, dtype, rng):
-    """Inputs of the setup kernel at recorded step 60 (one leg in swing) on a
-    WARMED carry: two steps of the tensor-code setup before it, so the old T
-    and J, the stale d(T^-1)/dt and the integral are those of a running
-    controller.  A quarter of the batch gets another contact pattern (a
-    contact switch where the reference is new), `ref_is_new` is False on a
-    third, `deriv_valid` False on a fifth, and the warm start is non-zero."""
+def setup_args(batch: int, dtype, rng, step=60, switch=True):
+    """Inputs of the setup kernel at a recorded step (60: one leg in swing)
+    on a WARMED carry: two steps of the tensor-code setup before it, so the
+    old T and J, the stale d(T^-1)/dt and the integral are those of a
+    running controller; the warm start is non-zero.  With `switch` a
+    quarter of the batch gets another contact pattern (a contact switch
+    where the reference is new), `ref_is_new` is False on a third and
+    `deriv_valid` False on a fifth; without, every reference is new and
+    agrees with the carried contacts."""
     model = anymal_d_model(dtype, DEV)
-    cp, qpp = ControllerParams(), QPSolverParams()
+    cp = ControllerParams()
     off = replay.make_offsets(batch, dtype, rng, DEV)
     carry = wbc.init_carry(batch, dtype, DEV)
     every = torch.ones(batch, dtype=torch.bool, device=DEV)
-    for t in (58, 59):
+    for t in (step - 2, step - 1):
         obs, ref, _ = replay.step_inputs(TRAJ, t, batch, dtype, off, DEV)
         s = wbc.wbc_setup(model, cp, obs, ref, carry, every)
         carry = wbc.WBCCarry(qp_warm=carry.qp_warm, **s.carry_updates)
-    obs, ref, _ = replay.step_inputs(TRAJ, 60, batch, dtype, off, DEV)
+    obs, ref, _ = replay.step_inputs(TRAJ, step, batch, dtype, off, DEV)
     idx = torch.arange(batch, device=DEV)
-    contacts = ref.contacts.clone()
-    flip = idx % 4 == 1
-    contacts[flip, 0] = 1.0 - contacts[flip, 0]
-    ref = ref._replace(contacts=contacts)
-    ref_is_new = idx % 3 != 0
     rnd = lambda k: torch.as_tensor(0.1 * rng.standard_normal((batch, k)), device=DEV).to(dtype)
-    carry = carry._replace(deriv_valid=idx % 5 != 2,
-                           qp_warm=qp.QPState(x=rnd(N), z=rnd(M), y=rnd(M)))
-    args = (model, cp, obs, ref, carry, ref_is_new)
+    carry = carry._replace(qp_warm=qp.QPState(x=rnd(N), z=rnd(M), y=rnd(M)))
+    ref_is_new = every
+    if switch:
+        contacts = ref.contacts.clone()
+        flip = idx % 4 == 1
+        contacts[flip, 0] = 1.0 - contacts[flip, 0]
+        ref = ref._replace(contacts=contacts)
+        ref_is_new = idx % 3 != 0
+        carry = carry._replace(deriv_valid=idx % 5 != 2)
+    return model, cp, obs, ref, carry, ref_is_new
+
+
+def setup_problem(batch: int, dtype, rng):
+    """The setup kernel's cases at step 60 (`setup_args`, with switches)."""
+    qpp = QPSolverParams()
+    args = setup_args(batch, dtype, rng)
+    carry, ref_is_new = args[4], args[5]
     want = setup_k.setup_batched_plain(*args, qp_params=qpp)
     sw = want["carry_updates"]["switch_flag"]
     stats = {
@@ -391,14 +425,32 @@ def setup_problem(batch: int, dtype, rng):
             (K3, "plain_variant", fn, plain, args, dict(qp_params=None))], stats
 
 
-def setup_bytes(args, got) -> int:
+def exact_setup_problem(batch: int, dtype, rng):
+    """K3x's cases: "main", recorded step 20 (all feet down, far from any
+    contact switch, every reference new); "switch", step 60 with the
+    switches of `setup_problem`; "plain_variant", the latter without the
+    prepare tail.  The wrapper's `exact_mode=True` runs K3x, its plain
+    version `wbc_setup`'s exact branch (forward-mode AD)."""
+    qpp = QPSolverParams()
+    far = setup_args(batch, dtype, rng, step=20, switch=False)
+    near = setup_args(batch, dtype, rng)
+    fn = lambda *a, **k: setup_flat(setup_k.setup_batched(*a, exact_mode=True, **k))
+    plain = lambda *a, **k: setup_flat(setup_k.setup_batched_plain(*a, exact_mode=True, **k))
+    return [(K3X, "main", fn, plain, far, dict(qp_params=qpp)),
+            (K3X, "switch", fn, plain, near, dict(qp_params=qpp)),
+            (K3X, "plain_variant", fn, plain, near, dict(qp_params=None))]
+
+
+def setup_bytes(args, got, exact=False) -> int:
     """Bytes the setup kernel must move: every input read once (of the
-    carried 18 x 18 T and d(T^-1)/dt only the top 6 rows are read; the model
-    table is shared by all scenarios), every output written once."""
+    carried 18 x 18 T and d(T^-1)/dt only the top 6 rows are read, and the
+    exact mode reads neither them nor the carried J; the model table is
+    shared by all scenarios), every output written once."""
     _, _, obs, ref, carry, ref_is_new = args
-    read = [*obs, *ref, carry.old_T[:, :6], carry.tdot_inv[:, :6], carry.old_J_st,
-            carry.old_J_sw, carry.integral_error, carry.prev_contacts,
+    read = [*obs, *ref, carry.integral_error, carry.prev_contacts,
             carry.switch_flag, carry.deriv_valid, ref_is_new]
+    if not exact:
+        read += [carry.old_T[:, :6], carry.tdot_inv[:, :6], carry.old_J_st, carry.old_J_sw]
     if len(got) > len(SETUP_RESULT) + len(SETUP_CARRY):
         read += list(carry.qp_warm)
     size = lambda t: t.numel() * t.element_size()
@@ -469,7 +521,7 @@ def hold(name, case, dtype, errs):
                 ok, e["tol"] = e["abs_err"] <= bound, bound
             if not ok:
                 raise AssertionError(f"{where}: kernel disagrees with its plain version: {e}")
-        if (tol is FLOOR or (name == K3 and o in SETUP_GUARDED)) \
+        if (tol is FLOOR or (name in (K3, K3X) and o in SETUP_GUARDED)) \
                 and "kernel_vs_f64_plain" in e:
             bound = GUARD * e["plain_vs_f64_plain"] + GUARD_ATOL
             if e["kernel_vs_f64_plain"] > bound:
@@ -526,12 +578,15 @@ def flops_of(name: str, batch: int, kw: dict, n: int = N) -> float:
         return float(kw["iters"] * mv + epi) * batch
     if name == "prepare_scaled":
         per = prep(kw["sweeps"])
-    elif name == K3:
+    elif name in (K3, K3X):
         # about 17,000 multiply-adds from the stages' loop bounds (Mc_jj 2.6k,
         # foot Jacobians 2k, the J rows 1.7k, X 1.3k, kinematics 1.3k, world
-        # inertias 1.4k, ...), plus the prepare tail in the fused variant
+        # inertias 1.4k, ...), plus the prepare tail in the fused variant;
+        # K3x's tangent stages add about 15,000 (Mbj's tangent 4.3k, dX 3k,
+        # the feet's 2k, world inertias' 1.4k, d(T^-1)/dt 2.3k, FK 1k, ...)
         qpp = kw["qp_params"]
-        per = 35_000 + (prep(qpp.scaling_iters) if qpp is not None else 0)
+        per = 35_000 + (30_000 if name == K3X else 0) \
+            + (prep(qpp.scaling_iters) if qpp is not None else 0)
     elif name == "admm_zy_iterations_res":
         mv = 2 * (2 * m * n + n * n)                 # A^T t, K^-1 ., A .
         per = kw["iters"] * mv + 2 * (n * n + m * n) + 2 * (m * n + n * n) \
@@ -584,6 +639,7 @@ def check_kernels():
     with torch.no_grad():
         cases, stats = kernel_problem(BATCH, torch.float32, rng)
         setup_cases, stats["setup"] = setup_problem(BATCH, torch.float32, rng)
+        setup_cases += exact_setup_problem(BATCH, torch.float32, rng)
         for name, case, fn, plain, args, kw in cases + setup_cases:
             errs, got = compare(name, case, fn, plain, args, kw, torch.float32)
             if case != "main":
@@ -594,8 +650,8 @@ def check_kernels():
             ms = time_ms(lambda: fn(*args, **kw), host_ahead=True)
             ms_with_host = time_ms(lambda: fn(*args, **kw))
             plain_ms = time_ms(lambda: plain(*args, **kw), reps=5, warmup=1)
-            if name == K3:
-                nbytes = setup_bytes(args, got)
+            if name in (K3, K3X):
+                nbytes = setup_bytes(args, got, exact=name == K3X)
             else:
                 nbytes = sum(t.numel() * t.element_size() for t in flat_tensors(args)) \
                     + sum(t.numel() * t.element_size() for t in got)
@@ -616,7 +672,7 @@ def check_kernels():
             }
             if name == K8:
                 ns_warm_extra(rows[K8], case, fn, plain, args, kw, got)
-            if name == K3:
+            if name in (K3, K3X):
                 # the variant without the prepare tail, and the same launch
                 # again: a race between threads would rarely repeat bit for bit
                 kw0 = dict(qp_params=None)
@@ -633,6 +689,7 @@ def check_kernels():
                              (37, torch.float64)):
             probs, _ = kernel_problem(batch, dtype, rng)
             probs += setup_problem(batch, dtype, rng)[0]
+            probs += exact_setup_problem(batch, dtype, rng)
             for name, case, fn, plain, args, kw in probs:
                 errs, _ = compare(name, case, fn, plain, args, kw, dtype)
                 rows[name][f"{case}_{str(dtype)[6:].replace('float', 'f')}_B{batch}"] = {
@@ -647,7 +704,7 @@ def check_kernels():
 # --------------------------------------------------------------------------
 
 def run_walk(batch: int, qpp: QPSolverParams, offsets, record=None, steps=None,
-             setup_backend="auto"):
+             setup_backend="auto", cparams=None):
     """Replay the recorded walk through wbc_step_batched on the card in
     float32.  Returns per-step host times (ms), max KKT and flagged counts;
     `record(t, out)` sees every step's output."""
@@ -667,26 +724,44 @@ def run_walk(batch: int, qpp: QPSolverParams, offsets, record=None, steps=None,
             record(t, out)
 
     replay.replay(model, TRAJ, range(steps), batch, qpp, offsets, on_step, timed=True,
-                  setup_backend=setup_backend)
+                  setup_backend=setup_backend, cparams=cparams)
     return ms, kkts, flagged
 
 
 COMPARE_STEPS = 70     # the window the shorter paths run: steps 0..69, one contact switch
-# each path: steps (None: all), setup backend, solver params, kernels it must
-# launch at least once a step (the setup's exactly once), kernels it must not
+# the exact-derivative paths' solver: the shipped parameters with the rescue
+# sized to the burst of scenarios above the threshold next to a contact
+# switch (the reference's own record: `rescue_batch` = 128 could not absorb
+# it there; 2048 did)
+RESCUE_2048 = QPSolverParams(rescue_batch=2048)
+EXACT_CP = ControllerParams(exact_derivatives=True)
+# each path: steps (None: all), setup backend, solver params, controller
+# params, kernels it must launch at least once a step (the setup's exactly
+# once), kernels it must not, and whether its KKT and flagged counts are held
+# to the bars (the exact path under the shipped solver parameters is printed)
 PATHS = {
     "kernel": dict(steps=None, setup_backend="kernel", qpp=QPSolverParams(),
-                   runs=(K3, K1, K2), never=(K4, K5, K7)),
+                   runs=(K3, K1, K2), never=(K4, K5, K7, K3X)),
     "torch": dict(steps=COMPARE_STEPS, setup_backend="torch", qpp=QPSolverParams(),
-                  runs=(K4, K1, K2), never=(K3, K5, K7)),
+                  runs=(K4, K1, K2), never=(K3, K5, K7, K3X)),
     "sigma": dict(steps=COMPARE_STEPS, setup_backend="kernel",
                   qpp=QPSolverParams(sigma=SIGMA),
-                  runs=(K3, K5, K2), never=(K4, K1, K7)),
+                  runs=(K3, K5, K2), never=(K4, K1, K7, K3X)),
+    "exact_shipped": dict(steps=COMPARE_STEPS, setup_backend="kernel", qpp=QPSolverParams(),
+                          cp=EXACT_CP, runs=(K3X, K1, K2), never=(K3, K4, K5, K7),
+                          quality=False),
+    "exact": dict(steps=COMPARE_STEPS, setup_backend="kernel", qpp=RESCUE_2048, cp=EXACT_CP,
+                  runs=(K3X, K1, K2), never=(K3, K4, K5, K7)),
+    "exact_oracle": dict(steps=COMPARE_STEPS, setup_backend="kernel", qpp=RESCUE_2048,
+                         cp=ControllerParams(exact_derivatives=True, exact_epilogue=True),
+                         runs=(K3, K1, K2), never=(K3X, K4, K5, K7)),
 }
 
 
-def check_run(tag, launches, plain, kkts, flagged, runs, never, n_steps):
-    """The assertions every counted run shares."""
+def check_run(tag, launches, plain, kkts, flagged, runs, never, n_steps, quality=True):
+    """The assertions every counted run shares; with `quality` False the
+    KKT and flagged counts are returned, not held to the bars, and only
+    have to be finite."""
     for k in runs:
         if launches[k] == 0:
             raise AssertionError(f"{tag}: {k} was never launched: {launches}")
@@ -696,6 +771,10 @@ def check_run(tag, launches, plain, kkts, flagged, runs, never, n_steps):
     if any(plain.values()):
         raise AssertionError(f"a plain version ran on {tag}: {plain}")
     n_flag = sum(flagged)
+    if not quality:
+        if not np.isfinite(kkts).all():
+            raise AssertionError(f"{tag}: a KKT residual is not finite")
+        return n_flag
     if n_flag > 1e-4 * BATCH * n_steps:
         raise AssertionError(
             f"{tag}: {n_flag} flagged scenario-steps (kkt > threshold) of {BATCH * n_steps}")
@@ -726,10 +805,10 @@ def drive_path(path: str, offsets):
     counts zeroed just before and read just after.  Returns (launches,
     summary, [(tau, kkt) of the first COMPARE_STEPS steps])."""
     spec = PATHS[path]
-    qpp, backend = spec["qpp"], spec["setup_backend"]
+    qpp, backend, cp = spec["qpp"], spec["setup_backend"], spec.get("cp")
     # warm-up outside the counted run: first-use allocator and library
     # start-up costs are set-up, not step time
-    run_walk(BATCH, qpp, offsets, steps=3, setup_backend=backend)
+    run_walk(BATCH, qpp, offsets, steps=3, setup_backend=backend, cparams=cp)
     n_steps = TRAJ["base_R"].shape[0] if spec["steps"] is None else spec["steps"]
     kept, last = [], {}
     orig_solve = qp.solve_batched
@@ -750,18 +829,26 @@ def drive_path(path: str, offsets):
     torch.cuda.reset_peak_memory_stats()
     qp.solve_batched = solve_spy
     try:
-        ms, kkts, flagged = run_walk(BATCH, qpp, offsets, record, n_steps, backend)
+        ms, kkts, flagged = run_walk(BATCH, qpp, offsets, record, n_steps, backend, cp)
     finally:
         qp.solve_batched = orig_solve
     launches = kernels.launch_counts()
     syncs = qp.HOST_SYNCS
     n_flag = check_run(f"the {path} path", launches, kernels.plain_counts(), kkts, flagged,
-                       spec["runs"], spec["never"], n_steps)
+                       spec["runs"], spec["never"], n_steps, spec.get("quality", True))
     setup, *solver = spec["runs"]
     if launches[setup] != n_steps or any(launches[k] < n_steps for k in solver):
         raise AssertionError(f"the {path} path: {launches} in {n_steps} steps")
     summary = {"path": path, "setup_backend": backend, "sigma": qpp.sigma,
+               "exact_derivatives": bool(cp and cp.exact_derivatives),
+               "exact_epilogue": bool(cp and cp.exact_epilogue),
+               "rescue_batch": qpp.rescue_batch,
+               "quality_asserted": spec.get("quality", True),
                **step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs)}
+    if not summary["quality_asserted"]:
+        # where the burst sits: flagged scenarios per step, on the steps
+        # that have any
+        summary["flagged_per_step"] = {t: f for t, f in enumerate(flagged) if f}
     return launches, summary, kept
 
 
@@ -801,13 +888,16 @@ def compare_paths(kept_a, kept_b):
 
 
 def main_paths(offsets):
-    """The three paths of the control step, each against the main one."""
+    """The paths of the control step: the torch-setup and sigma paths each
+    against the main one, the exact path against its oracle."""
     out = {}
     for path in PATHS:
         out[path] = drive_path(path, offsets)
     kept_k = out["kernel"][2]
     versus = {f"kernel_path_vs_{p}_path": compare_paths(kept_k, out[p][2])
               for p in ("torch", "sigma")}
+    versus["kernel_path_vs_exact_oracle"] = compare_paths(out["exact"][2],
+                                                          out["exact_oracle"][2])
     return {p: v[0] for p, v in out.items()}, {p: v[1] for p, v in out.items()}, versus
 
 
@@ -1038,6 +1128,134 @@ def torque_parity():
     return out
 
 
+# --------------------------------------------------------------------------
+# the closed loop: planner -> control step -> physics
+# --------------------------------------------------------------------------
+
+ROLLOUT_STEPS = 500
+STAND_STEPS = 100      # every scenario stands first, then walks at its own speed
+BURST_STEPS = 200      # the window that holds the closed loop's burst (step 186)
+
+
+# the exact closed loop's asserted solver: the rescue sized to the burst
+# (`rescue_batch` = 2048, the recipe of the reference's record, PERF.md Part
+# 2 "exact_derivatives", which there itself left up to 13 scenarios a step
+# above the threshold), and its second polish round too.  Each rescue stage
+# polishes its whole sub-batch once; round 2 runs only on the
+# `rescue_round2_batch` worst scenarios still above the threshold (32 by
+# default: the compacted round 2 of `ops.qp._rescue_core`, as the JAX
+# package's ops/qp.py:1842 has it), so three stages fix at most 96 of a
+# burst.  Set to 2048, round 2 covers the whole sub-batch.  At 2048 / 32 the
+# burst leaves scenarios above the threshold: that run is printed beside
+# it, over the burst's window.
+RESCUE_BURST = QPSolverParams(rescue_batch=2048, rescue_round2_batch=2048)
+
+
+def closed_loop(exact: bool, qpp: QPSolverParams, quality=True, steps=ROLLOUT_STEPS):
+    """`batched_rollout` at B = 4096 in float32 with the static walk: the
+    planner ticks every round(loop_rate * planner dt) = 4 control steps;
+    per-scenario forward speeds drawn from the seed, uniform in [0, 0.5]
+    m/s from control step 100.  Finite differences or exact derivatives,
+    under the solver parameters `qpp`, for `steps` control steps.  Stage
+    times from CUDA events recorded at each stage boundary (device-stream
+    spans, host gaps included); launches counted over the run.  With `quality` False the
+    KKT residuals are printed, not held to the 3e-3 bar.  Returns
+    (summary, trace)."""
+    model = anymal_d_model(torch.float32, DEV)
+    cp = EXACT_CP if exact else ControllerParams()
+    pp = PlannerParams()
+    ratio = int(round(cp.loop_rate * pp.dt))
+    speeds = np.random.default_rng(SEED + 3).uniform(0.0, 0.5, BATCH)
+    cmds = torch.zeros((BATCH, steps, 3), dtype=torch.float32, device=DEV)
+    cmds[:, STAND_STEPS:, 0] = torch.as_tensor(speeds, dtype=torch.float32, device=DEV)[:, None]
+    planner = lambda st, c: gait.planner_step(pp, st, c)
+
+    def run(T, mark=None):
+        carry = rollout.init_rollout_carry(model, cp, BATCH, pp, torch.float32, DEV)
+        return rollout.batched_rollout(model, cp, qpp, SimParams(), planner, ratio, carry,
+                                       cmds[:, :T].contiguous(), mark=mark)
+
+    run(3)                                   # warm-up, not counted
+    events = {}
+
+    def mark(k, stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[k, stage] = ev
+
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, trace = run(steps, mark)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    span = lambda a, b: [events[k, a].elapsed_time(events[k, b]) for k in range(steps)]
+    planner_ms, control_ms, sim_ms = (span("planner", "control"), span("control", "sim"),
+                                      span("sim", "end"))
+    step_ms = [p + c + s_ for p, c, s_ in zip(planner_ms, control_ms, sim_ms)]
+    # a scenario that fell is frozen and its torques zeroed from then on
+    alive = trace.tau[:, -1].abs().amax(-1) > 0
+    finite = all(bool(torch.isfinite(t).all()) for t in carry.sim)
+    err = trace.com_pose[:, STAND_STEPS:, :3] - trace.ref_com_pose[:, STAND_STEPS:, :3]
+    moved = trace.com_pos[:, -1, 0] - trace.com_pos[:, STAND_STEPS, 0]
+    flagged = (trace.qp_kkt > qpp.rescue_threshold).sum(0)
+    summary = {
+        "exact_derivatives": exact, "rescue_batch": qpp.rescue_batch,
+        "rescue_round2_batch": qpp.rescue_round2_batch, "quality_asserted": quality,
+        "batch": BATCH,
+        "steps": steps, "planner_ratio": ratio, "dtype": "float32",
+        "ms_per_control_step": wall_ms / steps,
+        "ms_per_control_step_events_median": statistics.median(step_ms),
+        "control_ms_median": statistics.median(control_ms),
+        "sim_ms_median": statistics.median(sim_ms),
+        "planner_ms_median": statistics.median(planner_ms),
+        "sim_share": sum(sim_ms) / sum(step_ms), "control_share": sum(control_ms) / sum(step_ms),
+        "alive_share": float(alive.float().mean()), "state_finite": finite,
+        "min_com_z": float(trace.com_pos[..., 2].min()),
+        "max_qp_kkt": float(trace.qp_kkt.max()),
+        "flagged_scenario_steps": int(flagged.sum()),
+        "flagged_per_step": {int(t): int(flagged[t]) for t in torch.nonzero(flagged).flatten()},
+        "tracking_rms_m": float(torch.sqrt((err.double() ** 2).mean())),
+        "walked_m_median": float(moved.median()), "walked_m_max": float(moved.max()),
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+    setup = K3X if exact else K3
+    if launches[setup] != steps or launches[K1] < steps \
+            or launches[K2] < steps or launches[K3 if exact else K3X]:
+        raise AssertionError(f"closed loop (exact {exact}): launches {launches}")
+    if any(kernels.plain_counts().values()):
+        raise AssertionError(f"a plain version ran in the closed loop: {kernels.plain_counts()}")
+    if not finite or not bool(alive.all()) or summary["min_com_z"] <= 0.4 \
+            or not np.isfinite(summary["max_qp_kkt"]) \
+            or (quality and summary["max_qp_kkt"] > 3e-3):
+        raise AssertionError(f"closed loop (exact {exact}): {summary}")
+    return summary, trace
+
+
+def closed_loops():
+    """The closed loop with finite differences (the shipped solver), and
+    with exact derivatives: at `rescue_batch` = 2048 over the burst's window
+    (printed) and with the rescue sized to the burst (`RESCUE_BURST`,
+    asserted).  The asserted
+    exact run must track the reference at least nearly as well as the
+    finite differences (RMS of the CoM position error over the walking
+    steps within 1.2x)."""
+    out = {}
+    for tag, exact, qpp, quality, steps in (
+            ("finite_differences", False, QPSolverParams(), True, ROLLOUT_STEPS),
+            ("exact_rescue_batch_2048", True, RESCUE_2048, False, BURST_STEPS),
+            ("exact", True, RESCUE_BURST, True, ROLLOUT_STEPS)):
+        torch.cuda.reset_peak_memory_stats()
+        out[tag] = closed_loop(exact, qpp, quality, steps)[0]
+    ratio = out["exact"]["tracking_rms_m"] / out["finite_differences"]["tracking_rms_m"]
+    if ratio > 1.2:
+        raise AssertionError(f"exact-derivative tracking is {ratio:.2f}x the finite "
+                             f"differences': {out}")
+    return {**out, "tracking_rms_exact_over_fd": ratio}
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1062,11 +1280,13 @@ def main():
     del rec
     no_cache = no_cache_step()
     parity = torque_parity()
+    loops = closed_loops()
     # each kernel's row carries the launches of the run that drives it: the
     # main path's K3, K1, K2; the torch path's K4 (its code runs inside K3 on
     # the main path); the sigma path's K5; the generic path's K7 (sigma 0);
     # the standalone run's K6 and K8, which no path of the control step runs
-    counted = {K3: "kernel", K1: "kernel", K2: "kernel", K4: "torch", K5: "sigma"}
+    counted = {K3: "kernel", K1: "kernel", K2: "kernel", K4: "torch", K5: "sigma",
+               K3X: "exact"}
     for k, path in counted.items():
         rows[k]["launches"], rows[k]["launches_from"] = launches[path][k], f"{path} path"
     rows[K7]["launches"] = generic[0.0][0][K7]
@@ -1076,14 +1296,18 @@ def main():
     if any(r["launches"] == 0 for r in rows.values()):
         raise AssertionError(f"a kernel was launched on no run: {rows}")
     tag = {"card": name, "power_limit": limit}
-    for path in PATHS:
+    for path in ("kernel", "torch", "sigma"):
         emit({"main_path" if path == "kernel" else f"{path}_path": summaries[path], **tag})
+    emit({"exact_path": {"shipped": summaries["exact_shipped"],
+                         "rescue_batch_2048": summaries["exact"]}, **tag})
+    emit({"exact_oracle_path": summaries["exact_oracle"], **tag})
     emit({**versus, **tag})
     for s_ in (0.0, SIGMA):
         emit({"generic_path": generic[s_][1], **tag})
     emit({"no_cache_step": no_cache, **tag})
     emit({"standalone_kernels": standalone[1], **tag})
     emit({"torque_parity": parity, **tag})
+    emit({"rollout": loops, **tag})
     emit({"kernels": list(rows.values()), "problem": stats, **tag})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

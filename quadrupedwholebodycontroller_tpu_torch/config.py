@@ -44,14 +44,36 @@ class ControllerParams:
     kd_swing: float = 20.0
     slack_weight: float = 1000.0
     initial_reference_pose: Sequence[float] = (0.0, 0.0, 0.50, 0.0, 0.0, 0.0)
-    # analytic Tdot/Jdot instead of the reference's finite differences;
-    # not ported yet (control/wbc.py raises when set)
+    # analytic Tdot/Jdot along the state flow instead of the reference's
+    # finite differences (no one-cycle lag, no contact-switch transients)
     exact_derivatives: bool = False
+    # with exact_derivatives on the kernel setup path: False = the tangents
+    # run inside the setup kernel (K3x); True = the finite-difference kernel
+    # plus the forward-mode-AD patch (control/wbc._exact_epilogue_batched),
+    # kept as the independent oracle
     exact_epilogue: bool = False
 
     @property
     def dt(self) -> float:
         return 1.0 / self.loop_rate
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannerParams:
+    """Static-walk gait parameters (reference config/params_planner.yaml)."""
+
+    step_length: float = 0.1
+    height_control_point: float = 0.1
+    x_offset: float = 0.50
+    y_offset: float = 0.33
+    step_duration: float = 0.2
+    body_height: float = 0.50
+    body_final_velocity: float = 0.40
+    dt: float = 0.01
+
+    @property
+    def cycle_duration(self) -> float:
+        return 4.0 * self.step_duration
 
 
 @dataclasses.dataclass(frozen=True)

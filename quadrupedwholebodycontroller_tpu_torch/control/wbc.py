@@ -151,6 +151,31 @@ def _mv(M, v):
     return torch.einsum("bij,bj->bi", M, v)
 
 
+def _exact_tangents(model: RobotModel, obs: RobotObservation, u, contacts):
+    """T and the contact-masked centroidal foot Jacobians J_st T^-1,
+    J_sw T^-1 of the configuration, their time derivatives along the state
+    flow (Rdot = skew(omega) R, pdot = v, qdot) by forward-mode AD through
+    the rigid-body code (`torch.func.jvp`, which `torch.no_grad` does not
+    switch off), and (M, tf) as aux:
+    ((T, J_st, J_sw), (Tdot, Jdot_st, Jdot_sw), (M, tf))."""
+    B = obs.q.shape[0]
+
+    def mats(R, p, qq):
+        kin = K.forward_kinematics(model, R, p, qq)
+        M = D.mass_matrix(model, kin)
+        tf = C.centroidal_transform(M, K.robot_com(model, kin), p)
+        J_feet = K.frame_jacobians(model, kin)[:, :, :3, :]
+        J_st = (J_feet * contacts[:, :, None, None]).reshape(B, 3 * NUM_LEGS, NV)
+        J_sw = (J_feet * (1.0 - contacts)[:, :, None, None]).reshape(B, 3 * NUM_LEGS, NV)
+        return (tf.T, J_st @ tf.T_inv, J_sw @ tf.T_inv), (M, tf)
+
+    # dual tensors cannot be built on overlapping memory (an expanded view)
+    dense = lambda ts: tuple(t.contiguous() for t in ts)
+    flow = K.state_flow(obs.base_R, obs.base_p, obs.q, u)
+    return torch.func.jvp(mats, dense((obs.base_R, obs.base_p, obs.q)), dense(flow),
+                          has_aux=True)
+
+
 def wbc_setup(
     model: RobotModel,
     params: ControllerParams,
@@ -160,11 +185,13 @@ def wbc_setup(
     ref_is_new,
 ) -> WBCSetup:
     """State update + QP assembly for a batch (the updateState /
-    solveQP-assembly halves of the reference control cycle), finite-
-    difference derivative path.  ref_is_new: (B,) bool."""
-    if params.exact_derivatives:
-        raise NotImplementedError(
-            "exact_derivatives: a later slice of the port")
+    solveQP-assembly halves of the reference control cycle).  ref_is_new:
+    (B,) bool.
+
+    Tdot and Jdot are the reference's one-cycle finite differences, or with
+    `params.exact_derivatives` their analytic values along the state flow
+    (`_exact_tangents`), and the centroidal bias then reads the fresh
+    d(T^-1)/dt instead of the carried one."""
     dtype, dev = obs.base_p.dtype, obs.base_p.device
     kw = dict(dtype=dtype, device=dev)
     B = obs.q.shape[0]
@@ -203,17 +230,25 @@ def wbc_setup(
     Jc_st_com, Jc_st_j = Jc_st[:, :, :6], Jc_st[:, :, 6:]
     Jc_sw_com, Jc_sw_j = Jc_sw[:, :, :6], Jc_sw[:, :, 6:]
 
-    # centroidal bias uses the STALE Tdot_inv (the reference reads the
-    # member it writes at the end of the previous cycle)
-    h_c = C.centroidal_bias(h_cor, M, carry.tdot_inv, u, tf)
+    if params.exact_derivatives:
+        # analytic Tdot / Jdot: no finite-difference lag and no switch
+        # zeroing (contacts are constant within the linearization); the
+        # centroidal bias uses the FRESH d(T^-1)/dt
+        _, (T_dot, Jd_st, Jd_sw), _ = _exact_tangents(model, obs, u, contacts)
+        new_tdot_inv = C.tdot_inverse(tf, T_dot)
+        h_c = C.centroidal_bias(h_cor, M, new_tdot_inv, u, tf)
+    else:
+        # centroidal bias uses the STALE Tdot_inv (the reference reads the
+        # member it writes at the end of the previous cycle)
+        h_c = C.centroidal_bias(h_cor, M, carry.tdot_inv, u, tf)
 
-    # finite-difference derivatives (computeDerivatives); zeroed on a
-    # contact switch AND on the first cycle
-    gate = torch.where(switch | ~carry.deriv_valid, 0.0, 1.0).to(dtype)[:, None, None]
-    T_dot = gate * (tf.T - carry.old_T) / dt
-    Jd_st = gate * (Jc_st - carry.old_J_st) / dt
-    Jd_sw = gate * (Jc_sw - carry.old_J_sw) / dt
-    new_tdot_inv = C.tdot_inverse(tf, T_dot)
+        # finite-difference derivatives (computeDerivatives); zeroed on a
+        # contact switch AND on the first cycle
+        gate = torch.where(switch | ~carry.deriv_valid, 0.0, 1.0).to(dtype)[:, None, None]
+        T_dot = gate * (tf.T - carry.old_T) / dt
+        Jd_st = gate * (Jc_st - carry.old_J_st) / dt
+        Jd_sw = gate * (Jc_sw - carry.old_J_sw) / dt
+        new_tdot_inv = C.tdot_inverse(tf, T_dot)
 
     # ---- desired wrench (computeDesiredWrench) ----
     kp_diag = torch.full((6,), params.kp, **kw)
@@ -337,6 +372,64 @@ def _wbc_polish_hinv(H, reg):
     return diag, blk_inv, 18
 
 
+def _exact_correction(model, params, obs, contacts, carry, switch):
+    """The changes exact derivatives make to the finite-difference setup,
+    for `_exact_epilogue_batched`: the QP rows that read Jdot or Tdot, and
+    the centroidal bias
+
+      rows 6-17  (stance):  -(Jd_st_exact - Jd_st_fd) @ vel_c
+      rows 34-45 (torque):  -(h_c_exact - h_c_fd)[6:]
+      rows 46-69 (swing):   -(Jd_sw_exact - Jd_sw_fd) @ vel_c
+      h_c_exact - h_c_fd = T^-T M ((Tdinv_exact - Tdinv_stale) @ u)
+
+    (the bias is linear in d(T^-1)/dt, so the difference needs no Coriolis
+    term).  Returns (d_st (B, 12), d_sw (B, 12), dh (B, 18), tdot_inv_exact)."""
+    dtype = obs.base_p.dtype
+    dt = 1.0 / params.loop_rate
+    u = torch.cat([obs.base_vel, obs.qd], dim=-1)
+    (T, Jst, Jsw), (T_dot, Jd_st, Jd_sw), (M, tf) = _exact_tangents(model, obs, u, contacts)
+    tdot_inv_exact = C.tdot_inverse(tf, T_dot)
+    dh = _mv(tf.T_inv.transpose(-1, -2), _mv(M, _mv(tdot_inv_exact - carry.tdot_inv, u)))
+    # the reference's velocity convention: CoM linear velocity + BASE
+    # angular velocity, not the centroidal average angular velocity
+    vel_c = torch.cat([_mv(T, u)[:, :3], obs.base_vel[:, 3:6], obs.qd], dim=-1)
+    gate = torch.where(switch | ~carry.deriv_valid, 0.0, 1.0).to(dtype)[:, None, None]
+    Jd_st_fd = gate * (Jst - carry.old_J_st) / dt
+    Jd_sw_fd = gate * (Jsw - carry.old_J_sw) / dt
+    d_st = -_mv(Jd_st - Jd_st_fd, vel_c)
+    d_sw = -_mv(Jd_sw - Jd_sw_fd, vel_c)
+    return d_st, d_sw, dh, tdot_inv_exact
+
+
+def _exact_epilogue_batched(model, params, obs, carry, setup: WBCSetup, prepared):
+    """Patch a finite-difference setup (the setup kernel's, or
+    `wbc_setup`'s) into the exact-derivatives one: the bound rows that read
+    Jdot or Tdot, h_c and the carried tdot_inv take their exact values, and
+    the scaled bounds of `prepared` (if given) are patched through the
+    linear Ruiz row scaling e.  A, H and g do not depend on the
+    derivatives.  Returns (setup, prepared)."""
+    cu = setup.carry_updates
+    d_st, d_sw, dh, tdot_exact = _exact_correction(
+        model, params, obs, cu["prev_contacts"], carry, cu["switch_flag"])
+    dl = torch.zeros_like(setup.qp_data.l)
+    dl[:, 6:18] = d_st
+    dl[:, 34:46] = -dh[:, 6:]
+    du = dl.clone()
+    du[:, 46:58] = d_sw
+    dl[:, 58:70] = d_sw
+    data = setup.qp_data
+    setup = setup._replace(
+        qp_data=data._replace(l=data.l + dl, u=data.u + du),
+        h_c=setup.h_c + dh,
+        carry_updates=dict(cu, tdot_inv=tdot_exact),
+    )
+    if prepared is not None:
+        sH, sA, sg, sl, su, rho, wxs, wzs, wys, dscale, escale = prepared
+        prepared = (sH, sA, sg, sl + escale * dl, su + escale * du,
+                    rho, wxs, wzs, wys, dscale, escale)
+    return setup, prepared
+
+
 def _switch_masked_warm(carry: WBCCarry, switch):
     """On a contact switch the carried duals refer to re-masked constraint
     rows (a different problem): keep the primal warm start, drop z/y."""
@@ -381,6 +474,11 @@ def wbc_step_batched(
     "torch" (`wbc_setup`, batched tensor code, then the prepare kernel: the
     kernel path's oracle) or "auto": "kernel" with the kernel QP backend.
 
+    With `params.exact_derivatives` the kernel setup runs its exact mode
+    (the tangents propagated in the kernel); with `params.exact_epilogue`
+    as well it runs the finite-difference kernel and patches the result
+    with `_exact_epilogue_batched` instead: the exact modes' oracle.
+
     ref_is_new may be a bool or a per-scenario (B,) bool tensor."""
     if setup_backend == "auto":
         setup_backend = "kernel" if qp_backend == "kernel" else "torch"
@@ -394,8 +492,10 @@ def wbc_step_batched(
     ref_is_new_b = torch.as_tensor(ref_is_new, dtype=torch.bool, device=dev).expand(B)
     prepared = None
     if setup_backend == "kernel":
-        sk = setup_kernel.setup_batched(model, params, obs, ref, carry,
-                                        ref_is_new_b, qp_params=qp_params)
+        epilogue = params.exact_derivatives and params.exact_epilogue
+        sk = setup_kernel.setup_batched(
+            model, params, obs, ref, carry, ref_is_new_b, qp_params=qp_params,
+            exact_mode=params.exact_derivatives and not epilogue)
         setup = WBCSetup(
             qp_data=qp.QPData(H=sk["H"], g=sk["g"], A=sk["A"], l=sk["l"], u=sk["u"]),
             h_c=sk["h_c"], Mc_jj=sk["Mc_jj"], Jc_st_j=sk["Jc_st_j"], com=sk["com"],
@@ -403,6 +503,9 @@ def wbc_step_batched(
             carry_updates=sk["carry_updates"],
         )
         prepared = sk["prepared"]   # its warm start is already switch-masked
+        if epilogue:
+            setup, prepared = _exact_epilogue_batched(model, params, obs, carry,
+                                                      setup, prepared)
     else:
         setup = wbc_setup(model, params, obs, ref, carry, ref_is_new_b)
     switch = setup.carry_updates["switch_flag"]

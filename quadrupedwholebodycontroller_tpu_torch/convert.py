@@ -3,7 +3,8 @@
 A caller that holds state as numpy arrays (a checkpoint, a recorded
 trajectory, the leaves of another framework's pytrees passed through
 `np.asarray`) builds the port's tuples here, so both sides compute on
-identical state, including a mid-replay WBCCarry and a warm QPCache.
+identical state, including a mid-replay WBCCarry and a warm QPCache, and
+the closed loop's planner, simulator and rollout state.
 Everything is batch-major; a cache kept batch-minor elsewhere is
 transposed by its owner before it gets here.
 """
@@ -81,6 +82,73 @@ def qpstate_from_numpy(d, dtype=torch.float32, device="cuda") -> QPState:
 def cache_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> QPCache:
     """d: kinv (B, n, n), hinv (B, n, n), sinv (B, m, m), batch-major."""
     return QPCache(**{k: _t(d[k], dtype, device).contiguous() for k in QPCache._fields})
+
+
+def _as_dict(d):
+    """A dict, or the fields of a NamedTuple (e.g. another framework's state
+    with its leaves turned into numpy arrays)."""
+    return d._asdict() if hasattr(d, "_asdict") else d
+
+
+def _i32(a, device):
+    return torch.as_tensor(np.array(a, order="C"), device=device).to(torch.int32)
+
+
+def planner_state_from_numpy(d, dtype=torch.float32, device="cuda"):
+    """The static walk's PlannerState (batched); `ref` a dict or NamedTuple."""
+    from quadrupedwholebodycontroller_tpu_torch.planner.gait import PlannerState
+
+    d = _as_dict(d)
+    ints = ("mode", "phase", "step_ticks", "cycle_ticks", "cycle_counter")
+    return PlannerState(
+        **{k: _i32(d[k], device) for k in ints},
+        **{k: _t(d[k], dtype, device) for k in PlannerState._fields
+           if k not in ints and k != "ref"},
+        ref=ref_from_numpy(_as_dict(d["ref"]), dtype, device))
+
+
+def trot_state_from_numpy(d, dtype=torch.float32, device="cuda"):
+    """The trot's TrotState (batched); `ref` a dict or NamedTuple."""
+    from quadrupedwholebodycontroller_tpu_torch.planner.trot import TrotState
+
+    d = _as_dict(d)
+    ints = ("tick", "phase", "phase_tick")
+    return TrotState(
+        **{k: _i32(d[k], device) for k in ints},
+        **{k: _t(d[k], dtype, device) for k in TrotState._fields
+           if k not in ints and k != "ref"},
+        ref=ref_from_numpy(_as_dict(d["ref"]), dtype, device))
+
+
+def sim_state_from_numpy(d, dtype=torch.float32, device="cuda"):
+    from quadrupedwholebodycontroller_tpu_torch.sim.world import SimState
+
+    d = _as_dict(d)
+    return SimState(**{k: _t(d[k], dtype, device) for k in SimState._fields})
+
+
+def rollout_carry_from_numpy(d, dtype=torch.float32, device="cuda"):
+    """d: `sim`, `wbc` (WBCCarry's fields, `qp_warm` included), `planner`
+    (the static walk's or the trot's state, told apart by its fields) and
+    `ref`, each a dict or NamedTuple."""
+    from quadrupedwholebodycontroller_tpu_torch.sim.rollout import RolloutCarry
+
+    d = _as_dict(d)
+    w = dict(_as_dict(d["wbc"]))
+    w["qp_warm"] = _as_dict(w["qp_warm"])
+    planner = _as_dict(d["planner"])
+    to_planner = planner_state_from_numpy if "mode" in planner else trot_state_from_numpy
+    return RolloutCarry(sim=sim_state_from_numpy(d["sim"], dtype, device),
+                        wbc=carry_from_numpy(w, dtype, device),
+                        planner=to_planner(planner, dtype, device),
+                        ref=ref_from_numpy(_as_dict(d["ref"]), dtype, device))
+
+
+def scenario_from_numpy(d, dtype=torch.float32, device="cuda"):
+    from quadrupedwholebodycontroller_tpu_torch.sim.scenario import Scenario
+
+    d = _as_dict(d)
+    return Scenario(**{k: _t(d[k], dtype, device) for k in Scenario._fields})
 
 
 def to_numpy(tree):

@@ -108,7 +108,7 @@ int launch_admm_zy(const void* Kinv, const void* A, const void* g, const void* l
   const size_t smem = sizeof(T) * ((size_t)(n + m) * sn + m + 3 * n + 32);
   const int mx = n > m ? n : m;
   const int threads = ((mx + 31) / 32) * 32;
-  if (int err = allow_shared_memory(admm_zy_kernel<T>, smem)) return err;
+  if (int err = allow_shared_memory<admm_zy_kernel<T>>(smem)) return err;
   admm_zy_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(
       (const T*)Kinv, (const T*)A, (const T*)g, (const T*)l, (const T*)u,
       (const T*)rho, (const T*)x0, (const T*)z0, (const T*)y0, (const T*)Hs,

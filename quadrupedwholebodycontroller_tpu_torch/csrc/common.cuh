@@ -36,11 +36,12 @@ __host__ __device__ inline int row_stride(int cols) { return cols | 1; }
 
 #ifdef __CUDACC__
 // Raises a kernel's dynamic shared-memory limit above the 48 KB default,
-// once per kernel instantiation and size (float64 at m = 70 needs 69 KB);
-// launches within the limit already granted call nothing.  Returns a
-// cudaError_t as int.
-template <typename Kernel>
-inline int allow_shared_memory(Kernel kernel, size_t bytes) {
+// once per kernel and size (float64 at m = 70 needs 69 KB); launches within
+// the limit already granted call nothing.  The kernel is a template argument,
+// so each kernel has its own grant even where two share one signature.
+// Returns a cudaError_t as int.
+template <auto kernel>
+inline int allow_shared_memory(size_t bytes) {
   static size_t granted = 48 * 1024;   // one per instantiation, so per kernel
   if (bytes <= granted) return 0;
   cudaError_t err = cudaFuncSetAttribute(

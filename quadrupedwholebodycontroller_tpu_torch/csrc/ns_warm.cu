@@ -139,7 +139,7 @@ template <typename T>
 int launch_ns_warm(const void* A, const void* W, void* X, int B, int n, int iters,
                    void* stream) {
   const size_t smem = sizeof(T) * ns_warm_words(n);
-  if (int err = allow_shared_memory(ns_warm_kernel<T>, smem)) return err;
+  if (int err = allow_shared_memory<ns_warm_kernel<T>>(smem)) return err;
   ns_warm_kernel<T><<<B, 256, smem, (cudaStream_t)stream>>>(
       (const T*)A, (const T*)W, (T*)X, n, iters);
   return (int)cudaGetLastError();

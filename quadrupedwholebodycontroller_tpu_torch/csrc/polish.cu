@@ -221,7 +221,7 @@ int launch_polish(const void* hd, const void* hblk, const void* hid,
                                    2 * (size_t)k * sk + 5 * n + 2 * m + 32);
   const int mx = n > m ? n : m;
   const int threads = ((mx + 31) / 32) * 32;
-  if (int err = allow_shared_memory(polish_compact_kernel<T>, smem)) return err;
+  if (int err = allow_shared_memory<polish_compact_kernel<T>>(smem)) return err;
   polish_compact_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(
       (const T*)hd, (const T*)hblk, (const T*)hid, (const T*)hiblk,
       (const T*)Sinv, (const T*)A, (const T*)da, (const T*)g, (const T*)bb,
@@ -241,7 +241,7 @@ int launch_polish_dense(const void* H, const void* Hinv, const void* Sinv,
                                    2 * (size_t)n * sn + 3 * n + 2 * m + 32);
   const int mx = n > m ? n : m;
   const int threads = ((mx + 31) / 32) * 32;
-  if (int err = allow_shared_memory(polish_dense_kernel<T>, smem)) return err;
+  if (int err = allow_shared_memory<polish_dense_kernel<T>>(smem)) return err;
   polish_dense_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(
       (const T*)H, (const T*)Hinv, (const T*)Sinv, (const T*)A, (const T*)da,
       (const T*)g, (const T*)bb, (const T*)l, (const T*)u, (T*)xo, (T*)yo,

@@ -57,7 +57,7 @@ int launch_prepare(const void* H, const void* A, const void* g, const void* l,
   const size_t smem = sizeof(T) * ((size_t)(n + m) * sn + 2 * (n + m));
   const int mx = n > m ? n : m;
   const int threads = ((mx + 31) / 32) * 32;
-  if (int err = allow_shared_memory(prepare_kernel<T>, smem)) return err;
+  if (int err = allow_shared_memory<prepare_kernel<T>>(smem)) return err;
   prepare_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(
       (const T*)H, (const T*)A, (const T*)g, (const T*)l, (const T*)u,
       (const T*)wx, (const T*)wz, (const T*)wy,

@@ -9,7 +9,14 @@
 //
 // Replaces the TPU kernel ops/pallas/setup_kernel.py::setup_batched
 // (_setup_call, kernel body _make_kernel) of the JAX package, its plain and
-// its fused-prepare variant (not exact_mode).  That kernel keeps 128
+// its fused-prepare variant, with the finite differences (K3) or with
+// exact_mode (K3x, the template parameter EXACT): there Tdot and Jdot are the
+// analytic tangents of the same recursion along the state flow (Rdot =
+// skew(omega) R, pdot = v, qdot), carried stage by stage beside the primal
+// values in SetupTangents, the centroidal bias reads the fresh d(T^-1)/dt
+// (formed before the bias, where the finite-difference variant reads the
+// carried one), and nothing is gated on a contact switch or deriv_valid.
+// That kernel keeps 128
 // scenarios on the lane axis, one scenario per lane, with the robot model
 // baked into the generated code.  Here one thread block owns one scenario,
 // the model is data (a packed table of constants and the tree's topology in
@@ -19,7 +26,8 @@
 //
 // Bound on this card: bytes.  A scenario reads about 1,000 words and writes
 // about 5,200 (plain) or 10,700 (fused: the scaled H and A again) against a
-// few tens of kflop.  The design keeps every intermediate in shared memory,
+// few tens of kflop (exact mode: about twice the kinematic and mass-block
+// work, the same bytes).  The design keeps every intermediate in shared memory,
 // assembles A and H there, runs the Ruiz sweeps on them in place and writes
 // each output once, coalesced.  The body is a chain of small dependent
 // stages (3-, 6-, 12- and 18-wide contractions over the tree): each stage
@@ -107,6 +115,19 @@ struct SetupShared {
   T fpos[12], fvel[12], wdes[6];
 };
 
+// exact mode only: the time derivatives along the state flow of the primal
+// quantities of the same names in SetupShared (about 900 words more a block;
+// the finite-difference variant does not allocate them)
+template <typename T>
+struct SetupTangents {
+  T R[NB][9], p[NB][3], axw[NJ][3];
+  T cw[NB][3], r[NB][3], Iw[NB][9];
+  T com[3], dcom[3], mr[3], rot[9];
+  T Mbj[6][NJ], Mb[6][6], X[6][NJ];
+  T tdi[6][NV];                      // the fresh d(T^-1)/dt, top rows
+  T Jf[NL][3][NV];                   // centroidal foot Jacobians, unmasked
+};
+
 template <typename T>
 __device__ __forceinline__ void cross3(const T* a, const T* b, T* o) {
   o[0] = a[1] * b[2] - a[2] * b[1];
@@ -159,6 +180,14 @@ __device__ void inv3(const T* M, T* O) {
   O[6] = co20 * inv_det; O[7] = co21 * inv_det; O[8] = co22 * inv_det;
 }
 
+// -skew(v)[p][q]
+template <typename T>
+__device__ __forceinline__ T neg_skew(const T* v, int p, int q) {
+  if (p == q) return T(0);
+  const int k = 3 - p - q;
+  return ((q - p + 3) % 3 == 1) ? v[k] : -v[k];
+}
+
 // (Y @ adj)[p][c] for one row Y of 6, adj = [[I, skew(d)], [0, I]]
 template <typename T>
 __device__ __forceinline__ T adj_right(const T* Y, const T* d, int c) {
@@ -168,10 +197,28 @@ __device__ __forceinline__ T adj_right(const T* Y, const T* d, int c) {
   return Y[5] + Y[0] * d[1] - Y[1] * d[0];
 }
 
+// column c of adj Tdot_top, adj = [[I, skew(dcom)], [0, I]], into S.adjD
 template <typename T>
+__device__ __forceinline__ void adj_tdot_col(SetupShared<T>& S, int c) {
+  for (int p = 0; p < 6; ++p) S.adjD[p][c] = S.Td[p][c];
+  const T bot[3] = {S.Td[3][c], S.Td[4][c], S.Td[5][c]};
+  for (int p = 0; p < 3; ++p) S.adjD[p][c] += cross_k(S.dcom, bot, p);
+}
+
+// d(T^-1)/dt [p][c], p < 6: -[adj D1 adj | adj (D2 - D1 X)] from S.adjD
+template <typename T>
+__device__ __forceinline__ T tdinv_entry(const SetupShared<T>& S, int p, int c) {
+  if (c < 6) return -adj_right(S.adjD[p], S.dcom, c);
+  T acc = T(0);
+  for (int k = 0; k < 6; ++k) acc += S.adjD[p][k] * S.X[k][c - 6];
+  return -(S.adjD[p][c] - acc);
+}
+
+// G: the tangents (EXACT only; null otherwise)
+template <typename T, bool EXACT>
 __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
                             int fused, int sweeps, T rho0, T rho_eq,
-                            SetupShared<T>& S) {
+                            SetupShared<T>& S, SetupTangents<T>* G) {
   auto in = [&](int k) { return static_cast<const T*>(a.p[k]); };
   auto out = [&](int k) { return static_cast<T*>(a.p[k]); };
   auto flag = [&](int k) { return static_cast<const unsigned char*>(a.p[k]); };
@@ -236,6 +283,17 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     S.rpy[1] = atan2(-R[6], sqrt(R[7] * R[7] + R[8] * R[8]));
     S.rpy[2] = atan2(R[3], R[0]);
   }
+  if constexpr (EXACT) {   // the base's tangents: skew(omega) R0 and v
+    QWBC_FOR(i, 9) {
+      const int row = i / 3, col = i % 3;
+      T om_sk[9];
+      skew3(in(I_BV) + sb * 6 + 3, om_sk);
+      const T* R = in(I_R0) + sb * 9;
+      G->R[0][i] = om_sk[3 * row] * R[col] + om_sk[3 * row + 1] * R[3 + col]
+                   + om_sk[3 * row + 2] * R[6 + col];
+    }
+    QWBC_FOR(i, 3) G->p[0][i] = in(I_BV)[sb * 6 + i];
+  }
   QWBC_SYNC();
 
   // ---- stages: forward kinematics and the velocity-product recursion,
@@ -267,6 +325,20 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
         S.w[bb][i] = S.w[pb][i] + qdj * S.axw[j][i];
         S.al[bb][i] = S.al[pb][i] + qdj * t2[i];
       }
+      if constexpr (EXACT) {
+        // dR = dR_parent N + R_parent dN, dN = cos(q) qd M1 + sin(q) qd M2
+        const T sd = S.cq[j] * qdj, cd = S.sq[j] * qdj;
+        T dN[9], a1[9], a2[9];
+        for (int k = 0; k < 9; ++k) dN[k] = sd * c[CJ_M1 + k] + cd * c[CJ_M2 + k];
+        const T* dRp = G->R[pb];
+        mm3(dRp, N, a1);
+        mm3(Rp, dN, a2);
+        for (int k = 0; k < 9; ++k) G->R[bb][k] = a1[k] + a2[k];
+        for (int i = 0; i < 3; ++i) {
+          G->p[bb][i] = G->p[pb][i] + mv3_row(dRp, i, c + CJ_P);
+          G->axw[j][i] = mv3_row(dRp, i, c + CJ_AX);
+        }
+      }
     }
     QWBC_SYNC();
   }
@@ -289,6 +361,26 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     }
     S.Iw[bb][3 * row + jr] = acc;
   }
+  if constexpr (EXACT) {
+    QWBC_FOR(i, NB * 3) {
+      const int bb = i / 3, k = i % 3;
+      const T v = G->p[bb][k] + mv3_row(G->R[bb], k, cb(bb) + CB_COM);
+      G->cw[bb][k] = v;
+      G->r[bb][k] = v - G->p[0][k];
+    }
+    QWBC_FOR(i, NB * 9) {   // dR I R^T + R I dR^T
+      const int bb = i / 9, row = (i % 9) / 3, jr = i % 3;
+      const T* I = cb(bb) + CB_INERTIA;
+      const T *R = S.R[bb], *dR = G->R[bb];
+      T acc = T(0);
+      for (int k = 0; k < 3; ++k) {
+        const T a1 = R[3 * row] * I[k] + R[3 * row + 1] * I[3 + k] + R[3 * row + 2] * I[6 + k];
+        const T d1 = dR[3 * row] * I[k] + dR[3 * row + 1] * I[3 + k] + dR[3 * row + 2] * I[6 + k];
+        acc += d1 * R[3 * jr + k] + a1 * dR[3 * jr + k];
+      }
+      G->Iw[bb][3 * row + jr] = acc;
+    }
+  }
   QWBC_SYNC();
 
   // ---- stage: Jacobian parts, centre of mass ----
@@ -310,6 +402,14 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     out(O_COM)[sb * 3 + k] = acc;
     out(O_POSE)[sb * 6 + k] = acc;
     out(O_POSE)[sb * 6 + 3 + k] = S.rpy[k];
+  }
+  if constexpr (EXACT) {
+    QWBC_FOR(k, 3) {
+      T acc = G->cw[0][k] * cb(0)[CB_WM];
+      for (int bb = 1; bb < NB; ++bb) acc += G->cw[bb][k] * cb(bb)[CB_WM];
+      G->com[k] = acc;
+      G->dcom[k] = acc - G->p[0][k];
+    }
   }
   QWBC_SYNC();
 
@@ -401,11 +501,54 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
                + dot3(S.axw[j], S.Iwa[bb][k]);
     S.Mjj[j][k] = acc;
   }
-  QWBC_FOR(i, 6) {        // the bias reads the CARRIED d(T^-1)/dt (one cycle stale)
-    const T* row = in(I_TDINV) + sb * NV * NV + i * NV;
-    T acc = T(0);
-    for (int c = 0; c < NV; ++c) acc += row[c] * S.u18[c];
-    S.tdu[i] = acc;
+  if constexpr (!EXACT) {
+    QWBC_FOR(i, 6) {      // the bias reads the CARRIED d(T^-1)/dt (one cycle stale)
+      const T* row = in(I_TDINV) + sb * NV * NV + i * NV;
+      T acc = T(0);
+      for (int c = 0; c < NV; ++c) acc += row[c] * S.u18[c];
+      S.tdu[i] = acc;
+    }
+  } else {                // the tangents of sum m r, the rotational block and Mbj
+    QWBC_FOR(k, 3) {
+      T acc = T(0);
+      for (int bb = 0; bb < NB; ++bb) acc += G->r[bb][k] * cb(bb)[CB_MASS];
+      G->mr[k] = acc;
+    }
+    QWBC_FOR(i, 9) {
+      const int row = i / 3, col = i % 3;
+      T acc = T(0), dg = T(0);
+      for (int bb = 0; bb < NB; ++bb) {
+        const T mass = cb(bb)[CB_MASS];
+        acc += G->Iw[bb][i]
+               - (G->r[bb][row] * S.r[bb][col] + S.r[bb][row] * G->r[bb][col]) * mass;
+        dg += T(2) * dot3(S.r[bb], G->r[bb]) * mass;
+      }
+      G->rot[i] = (row == col) ? acc + dg : acc;
+    }
+    QWBC_FOR(i, 6 * NJ) {
+      const int row = i / NJ, j = i % NJ;
+      T acc = T(0);
+      for (int bb = 1; bb < NB; ++bb) {
+        if (!moves(bb, j)) continue;
+        const T mass = cb(bb)[CB_MASS];
+        // d/dt jq = daxw x (cw - o_j) + axw x (dcw - do_j)
+        const T dl[3] = {S.cw[bb][0] - S.p[j + 1][0], S.cw[bb][1] - S.p[j + 1][1],
+                         S.cw[bb][2] - S.p[j + 1][2]};
+        const T tdl[3] = {G->cw[bb][0] - G->p[j + 1][0], G->cw[bb][1] - G->p[j + 1][1],
+                          G->cw[bb][2] - G->p[j + 1][2]};
+        T tjq[3];
+        for (int k = 0; k < 3; ++k)
+          tjq[k] = cross_k(G->axw[j], dl, k) + cross_k(S.axw[j], tdl, k);
+        if (row < 3) {
+          acc += tjq[row] * mass;
+        } else {
+          const int k = row - 3;
+          const T tiwa = mv3_row(G->Iw[bb], k, S.axw[j]) + mv3_row(S.Iw[bb], k, G->axw[j]);
+          acc += (cross_k(G->r[bb], S.jq[bb][j], k) + cross_k(S.r[bb], tjq, k)) * mass + tiwa;
+        }
+      }
+      G->Mbj[row][j] = acc;
+    }
   }
   QWBC_SYNC();
 
@@ -439,6 +582,17 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
         S.Mbi[3 + i][3 + l] = S3i[3 * i + l];
       }
   }
+  if constexpr (EXACT) {
+    QWBC_FOR(i, 36) {     // dMb = [[0, -skew(dmr)], [skew(dmr), drot]]
+      const int p = i / 6, l = i % 6;
+      T v;
+      if (p < 3)
+        v = (l < 3) ? T(0) : neg_skew(G->mr, p, l - 3);
+      else
+        v = (l < 3) ? -neg_skew(G->mr, p - 3, l) : G->rot[3 * (p - 3) + l - 3];
+      G->Mb[p][l] = v;
+    }
+  }
   QWBC_SYNC();
 
   // ---- stages: X = Mb^-1 Mbj with one refinement pass ----
@@ -464,6 +618,50 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
   }
   QWBC_SYNC();
 
+  if constexpr (EXACT) {
+    // ---- stages: the exact d(T^-1)/dt and the bias term it feeds, before
+    // the bias is formed: dX = Mb^-1 (dMbj - dMb X), then Tdot's top rows
+    // d/dt [adj^-1 | adj^-1 X] ----
+    QWBC_FOR(i, 6 * NJ) {
+      const int p = i / NJ, j = i % NJ;
+      T acc = T(0);
+      for (int k = 0; k < 6; ++k) {
+        T r = G->Mbj[k][j];
+        for (int l = 0; l < 6; ++l) r -= G->Mb[k][l] * S.X[l][j];
+        acc += S.Mbi[p][k] * r;
+      }
+      G->X[p][j] = acc;
+    }
+    QWBC_SYNC();
+    QWBC_FOR(i, 6 * NV) {
+      const int p = i / NV, c = i % NV;
+      T v = T(0);
+      if (c < 6) {
+        if (p < 3 && c >= 3) v = neg_skew(G->dcom, p, c - 3);
+      } else {
+        const int j = c - 6;
+        v = G->X[p][j];
+        if (p < 3) {
+          const T xb[3] = {S.X[3][j], S.X[4][j], S.X[5][j]};
+          const T txb[3] = {G->X[3][j], G->X[4][j], G->X[5][j]};
+          v -= cross_k(G->dcom, xb, p) + cross_k(S.dcom, txb, p);
+        }
+      }
+      S.Td[p][c] = v;
+    }
+    QWBC_SYNC();
+    QWBC_FOR(c, NV) adj_tdot_col(S, c);
+    QWBC_SYNC();
+    QWBC_FOR(i, 6 * NV) G->tdi[i / NV][i % NV] = tdinv_entry(S, i / NV, i % NV);
+    QWBC_SYNC();
+    QWBC_FOR(i, 6) {      // the bias reads the FRESH d(T^-1)/dt
+      T acc = T(0);
+      for (int c = 0; c < NV; ++c) acc += G->tdi[i][c] * S.u18[c];
+      S.tdu[i] = acc;
+    }
+    QWBC_SYNC();
+  }
+
   // ---- stage: Mb X, centroidal base block, T top rows, bias before the
   // projection, foot kinematics and centroidal foot Jacobians ----
   QWBC_FOR(i, 6 * NJ) {
@@ -487,11 +685,7 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     T v;
     if (c < 6) {
       v = (c == p) ? T(1) : T(0);
-      if (p < 3 && c >= 3 && c - 3 != p) {
-        // -skew(dcom)[p][c-3]
-        const int q = c - 3, k = 3 - p - q;
-        v = ((q - p + 3) % 3 == 1) ? S.dcom[k] : -S.dcom[k];
-      }
+      if (p < 3 && c >= 3) v = neg_skew(S.dcom, p, c - 3);
     } else {
       const int j = c - 6;
       v = S.X[p][j];
@@ -530,11 +724,8 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
       out(O_FPOS)[sb * 12 + 3 * f + c] = pf[c];
       for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = (k == c) ? T(1) : T(0);
     } else if (c < 6) {   // -skew(p_f - com), column c - 3
-      const int q = c - 3;
       const T rc[3] = {pf[0] - S.com[0], pf[1] - S.com[1], pf[2] - S.com[2]};
-      T nsk[9];
-      skew3(rc, nsk);
-      for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = -nsk[3 * k + q];
+      for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = neg_skew(rc, k, c - 3);
     } else {              // joint part: jq_f - [I | -skew(p_f - p_0)] X
       const int j = c - 6;
       const T rel[3] = {pf[0] - S.p[0][0], pf[1] - S.p[0][1], pf[2] - S.p[0][2]};
@@ -547,6 +738,40 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
         for (int k = 0; k < 3; ++k) col[k] += cross_k(S.axw[j], dl, k);
       }
       for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = col[k];
+    }
+  }
+  if constexpr (EXACT) {  // the foot Jacobians' tangents, term by term
+    QWBC_FOR(i, NL * NV) {
+      const int f = i / NV, c = i % NV, fb = foot_body[f];
+      const T* fp = mc + MC_FOOT + 3 * f;
+      T pf[3], tpf[3], col[3];
+      for (int k = 0; k < 3; ++k) {
+        pf[k] = S.p[fb][k] + mv3_row(S.R[fb], k, fp);
+        tpf[k] = G->p[fb][k] + mv3_row(G->R[fb], k, fp);
+      }
+      if (c < 3) {
+        for (int k = 0; k < 3; ++k) col[k] = T(0);
+      } else if (c < 6) {   // d/dt -skew(p_f - com)
+        const T trc[3] = {tpf[0] - G->com[0], tpf[1] - G->com[1], tpf[2] - G->com[2]};
+        for (int k = 0; k < 3; ++k) col[k] = neg_skew(trc, k, c - 3);
+      } else {
+        const int j = c - 6;
+        const T rel[3] = {pf[0] - S.p[0][0], pf[1] - S.p[0][1], pf[2] - S.p[0][2]};
+        const T trel[3] = {tpf[0] - G->p[0][0], tpf[1] - G->p[0][1], tpf[2] - G->p[0][2]};
+        const T xb[3] = {S.X[3][j], S.X[4][j], S.X[5][j]};
+        const T txb[3] = {G->X[3][j], G->X[4][j], G->X[5][j]};
+        for (int k = 0; k < 3; ++k)
+          col[k] = -(G->X[k][j] - cross_k(trel, xb, k) - cross_k(rel, txb, k));
+        if (moves(fb, j)) {
+          const T dl[3] = {pf[0] - S.p[j + 1][0], pf[1] - S.p[j + 1][1],
+                           pf[2] - S.p[j + 1][2]};
+          const T tdl[3] = {tpf[0] - G->p[j + 1][0], tpf[1] - G->p[j + 1][1],
+                            tpf[2] - G->p[j + 1][2]};
+          for (int k = 0; k < 3; ++k)
+            col[k] += cross_k(G->axw[j], dl, k) + cross_k(S.axw[j], tdl, k);
+        }
+      }
+      for (int k = 0; k < 3; ++k) G->Jf[f][k][c] = col[k];
     }
   }
   QWBC_SYNC();
@@ -583,7 +808,8 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     T v = (p == c) ? T(1) : T(0);
     if (p < 6) {
       v = S.Ttop[p][c];
-      S.Td[p][c] = S.gate * (v - in(I_OLD_T)[sb * NV * NV + i]) * sc[SC_INV_DT];
+      if constexpr (!EXACT)
+        S.Td[p][c] = S.gate * (v - in(I_OLD_T)[sb * NV * NV + i]) * sc[SC_INV_DT];
     }
     out(O_T)[sb * NV * NV + i] = v;
   }
@@ -604,7 +830,11 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
         S.A[46 + row][c] = v;
         S.A[58 + row][c] = v;
       }
-      const T jd = S.gate * (v - old[c]) * sc[SC_INV_DT];
+      T jd;
+      if constexpr (EXACT)
+        jd = G->Jf[f][k][c] * scale;      // contacts held within the linearization
+      else
+        jd = S.gate * (v - old[c]) * sc[SC_INV_DT];
       acc += jd * (c < 6 ? S.cvel[c] : S.u18[c]);
     }
     if (kind == 0) {
@@ -680,10 +910,8 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     }
     S.g[i] = gv;
   }
-  QWBC_FOR(c, NV) {       // adj applied to the columns of dT/dt
-    for (int p = 0; p < 6; ++p) S.adjD[p][c] = S.Td[p][c];
-    const T bot[3] = {S.Td[3][c], S.Td[4][c], S.Td[5][c]};
-    for (int p = 0; p < 3; ++p) S.adjD[p][c] += cross_k(S.dcom, bot, p);
+  if constexpr (!EXACT) {
+    QWBC_FOR(c, NV) adj_tdot_col(S, c);   // adj applied to the columns of dT/dt
   }
   QWBC_SYNC();
 
@@ -693,13 +921,10 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     const int p = i / NV, c = i % NV;
     T v = T(0);
     if (p < 6) {
-      if (c < 6) {
-        v = -adj_right(S.adjD[p], S.dcom, c);
-      } else {
-        T acc = T(0);
-        for (int k = 0; k < 6; ++k) acc += S.adjD[p][k] * S.X[k][c - 6];
-        v = -(S.adjD[p][c] - acc);
-      }
+      if constexpr (EXACT)
+        v = G->tdi[p][c];
+      else
+        v = tdinv_entry(S, p, c);
     }
     out(O_TDINV)[sb * NV * NV + i] = v;
   }
@@ -725,41 +950,66 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
 
 #ifdef __CUDACC__
 
-template <typename T>
+// shared memory a block: SetupShared, then in exact mode SetupTangents
+// (float32: 32.5 + 3.6 KB; float64: 65 + 7.3 KB, above the 48 KB default)
+template <typename T, bool EXACT>
+constexpr size_t setup_smem() {
+  return sizeof(SetupShared<T>) + (EXACT ? sizeof(SetupTangents<T>) : 0);
+}
+
+template <typename T, bool EXACT>
 __global__ void setup_kernel(SetupPtrs a, int refnew_stride, int fused,
                              int sweeps, T rho0, T rho_eq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  setup_block<T>(a, blockIdx.x, refnew_stride, fused, sweeps, rho0, rho_eq,
-                 *reinterpret_cast<SetupShared<T>*>(smem_raw));
+  SetupTangents<T>* G = EXACT ? reinterpret_cast<SetupTangents<T>*>(
+                                    smem_raw + sizeof(SetupShared<T>))
+                              : nullptr;
+  setup_block<T, EXACT>(a, blockIdx.x, refnew_stride, fused, sweeps, rho0, rho_eq,
+                        *reinterpret_cast<SetupShared<T>*>(smem_raw), G);
+}
+
+template <typename T, bool EXACT>
+int launch_setup_variant(const SetupPtrs& a, int B, int refnew_stride, int fused,
+                         int sweeps, T rho0, T rho_eq, void* stream) {
+  constexpr size_t smem = setup_smem<T, EXACT>();
+  if (int err = allow_shared_memory<setup_kernel<T, EXACT>>(smem)) return err;
+  setup_kernel<T, EXACT><<<B, 128, smem, (cudaStream_t)stream>>>(
+      a, refnew_stride, fused, sweeps, rho0, rho_eq);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_setup(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
-                 int B, int refnew_stride, int fused, int sweeps, T rho0,
+                 int B, int refnew_stride, int exact, int fused, int sweeps, T rho0,
                  T rho_eq, void* stream) {
   if (n_ptrs != N_PTRS || mc_len != MC_SIZE || topo_len != TP_SIZE)
     return (int)cudaErrorInvalidValue;
   SetupPtrs a;
   for (int k = 0; k < N_PTRS; ++k) a.p[k] = const_cast<void*>(ptrs[k]);
-  const size_t smem = sizeof(SetupShared<T>);
-  if (int err = allow_shared_memory(setup_kernel<T>, smem)) return err;
-  setup_kernel<T><<<B, 128, smem, (cudaStream_t)stream>>>(
-      a, refnew_stride, fused, sweeps, rho0, rho_eq);
-  return (int)cudaGetLastError();
+  return exact ? launch_setup_variant<T, true>(a, B, refnew_stride, fused, sweeps,
+                                               rho0, rho_eq, stream)
+               : launch_setup_variant<T, false>(a, B, refnew_stride, fused, sweeps,
+                                                rho0, rho_eq, stream);
 }
 
 #else  // plain C++: one thread runs the blocks one after the other
 
 template <typename T>
 int launch_setup(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
-                 int B, int refnew_stride, int fused, int sweeps, T rho0,
+                 int B, int refnew_stride, int exact, int fused, int sweeps, T rho0,
                  T rho_eq, void*) {
   if (n_ptrs != N_PTRS || mc_len != MC_SIZE || topo_len != TP_SIZE) return 1;
   SetupPtrs a;
   for (int k = 0; k < N_PTRS; ++k) a.p[k] = const_cast<void*>(ptrs[k]);
   SetupShared<T>* S = new SetupShared<T>;
-  for (int b = 0; b < B; ++b)
-    setup_block<T>(a, b, refnew_stride, fused, sweeps, rho0, rho_eq, *S);
+  SetupTangents<T>* G = new SetupTangents<T>;
+  for (int b = 0; b < B; ++b) {
+    if (exact)
+      setup_block<T, true>(a, b, refnew_stride, fused, sweeps, rho0, rho_eq, *S, G);
+    else
+      setup_block<T, false>(a, b, refnew_stride, fused, sweeps, rho0, rho_eq, *S, nullptr);
+  }
+  delete G;
   delete S;
   return 0;
 }
@@ -775,19 +1025,19 @@ int qwbc_host_reverse = 0;
 #endif
 
 int qwbc_setup_f32(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
-                   int B, int refnew_stride, int fused, int sweeps, float rho0,
-                   float rho_eq, void* stream) {
+                   int B, int refnew_stride, int exact, int fused, int sweeps,
+                   float rho0, float rho_eq, void* stream) {
   return qwbc::launch_setup<float>(ptrs, n_ptrs, mc_len, topo_len, B,
-                                   refnew_stride, fused, sweeps, rho0, rho_eq,
-                                   stream);
+                                   refnew_stride, exact, fused, sweeps, rho0,
+                                   rho_eq, stream);
 }
 
 int qwbc_setup_f64(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
-                   int B, int refnew_stride, int fused, int sweeps, double rho0,
-                   double rho_eq, void* stream) {
+                   int B, int refnew_stride, int exact, int fused, int sweeps,
+                   double rho0, double rho_eq, void* stream) {
   return qwbc::launch_setup<double>(ptrs, n_ptrs, mc_len, topo_len, B,
-                                    refnew_stride, fused, sweeps, rho0, rho_eq,
-                                    stream);
+                                    refnew_stride, exact, fused, sweeps, rho0,
+                                    rho_eq, stream);
 }
 
 }  // extern "C"

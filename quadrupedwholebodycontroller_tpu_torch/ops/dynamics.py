@@ -1,4 +1,5 @@
-"""Floating-base rigid-body dynamics, batched: mass matrix and Coriolis bias.
+"""Floating-base rigid-body dynamics, batched: mass matrix, Coriolis bias,
+gravity force, energies and forward dynamics.
 
   * M(q) = sum_b m_b Jv_b^T Jv_b + Jw_b^T I_b^w Jw_b over the lumped bodies,
     block-assembled from Jacobian parts.
@@ -146,10 +147,88 @@ def coriolis_bias_full(model: RobotModel, base_R, base_p, q, u):
     parts = K.body_com_jacobian_parts(model, kin)
     v_c, _ = K.parts_velocities(parts, u)
     w, alpha, a_c = velocity_product_kinematics(model, kin, u)
+    return _bias_from_accelerations(model, kin, parts, a_c, w, alpha), kin, parts, v_c
+
+
+def mass_matrix(model: RobotModel, kin: K.KinState, J=None):
+    """(..., nv, nv) free-floating mass matrix, mixed representation.  With
+    J (the body-CoM Jacobian stack, `K.body_com_jacobians`) it is the sum
+    over bodies of m Jv^T Jv + Jw^T Iw Jw; without, block-assembled from
+    the Jacobian parts (the stack is never built)."""
+    if J is None:
+        return mass_matrix_from_parts(model, kin, K.body_com_jacobian_parts(model, kin))
+    Jv, Jw = J[..., :3, :], J[..., 3:, :]
     Iw = world_inertias(model, kin)
-    F = model.mass[:, None] * a_c                                # (..., nb, 3)
+    return torch.einsum("b,...bik,...bil->...kl", model.mass, Jv, Jv) + torch.einsum(
+        "...bik,...bij,...bjl->...kl", Jw, Iw, Jw)
+
+
+def _bias_from_accelerations(model, kin, parts, a_c, w, alpha):
+    Iw = world_inertias(model, kin)
+    F = model.mass[:, None] * a_c
     N = torch.einsum("...bij,...bj->...bi", Iw, alpha) + _cross(
-        w, torch.einsum("...bij,...bj->...bi", Iw, w)
-    )
-    h = project_forces_from_parts(parts, F, N)
-    return h, kin, parts, v_c
+        w, torch.einsum("...bij,...bj->...bi", Iw, w))
+    return project_forces_from_parts(parts, F, N)
+
+
+def coriolis_bias_full_jvp(model: RobotModel, base_R, base_p, q, u):
+    """`coriolis_bias_full` with the velocity-product accelerations taken as
+    the forward-mode derivative (`torch.func.jvp`) of the body-velocity map
+    along the state flow, instead of the closed-form recursion: the
+    virtual-work derivation, exact by construction, for cross-checking."""
+    def velocities(R, p, qq):
+        kin = K.forward_kinematics(model, R, p, qq)
+        parts = K.body_com_jacobian_parts(model, kin)
+        return K.parts_velocities(parts, u), (kin, parts)
+
+    # dual tensors cannot be built on overlapping memory (an expanded view)
+    dense = lambda ts: tuple(t.contiguous() for t in ts)
+    (v_c, w), (a_c, alpha), (kin, parts) = torch.func.jvp(
+        velocities, dense((base_R, base_p, q)), dense(K.state_flow(base_R, base_p, q, u)),
+        has_aux=True)
+    return _bias_from_accelerations(model, kin, parts, a_c, w, alpha), kin, parts, v_c
+
+
+def coriolis_bias(model: RobotModel, base_R, base_p, q, u):
+    """(..., nv) Coriolis/centrifugal generalized force C(q, u) u, gravity-free."""
+    return coriolis_bias_full(model, base_R, base_p, q, u)[0]
+
+
+def gravity_force(model: RobotModel, kin: K.KinState, g_vec, parts=None):
+    """(..., nv) generalized force of the acceleration field g_vec (3,):
+    sum_b Jv_b^T m_b g_vec."""
+    if parts is None:
+        parts = K.body_com_jacobian_parts(model, kin)
+    g = torch.as_tensor(g_vec, dtype=parts.r.dtype, device=parts.r.device)
+    F = (model.mass[:, None] * g).expand_as(parts.r)
+    return project_forces_from_parts(parts, F, torch.zeros_like(F))
+
+
+def kinetic_energy(model: RobotModel, kin: K.KinState, u):
+    """(...) kinetic energy from the body velocities (an independent path
+    to check `mass_matrix` against: it equals u^T M u / 2)."""
+    vel6 = torch.einsum("...bij,...j->...bi", K.body_com_jacobians(model, kin), u)
+    v_c, w = vel6[..., :3], vel6[..., 3:]
+    Iw = world_inertias(model, kin)
+    return 0.5 * torch.einsum("b,...b->...", model.mass, torch.sum(v_c * v_c, dim=-1)) \
+        + 0.5 * torch.einsum("...bi,...bij,...bj->...", w, Iw, w)
+
+
+def potential_energy(model: RobotModel, kin: K.KinState, g: float = 9.81):
+    """(...) gravitational potential energy, gravity pulling along -z."""
+    return g * torch.einsum("b,...b->...", model.mass, kin.body_com_w[..., 2])
+
+
+def forward_dynamics(model: RobotModel, base_R, base_p, q, u, tau_gen):
+    """(..., nv) u_dot = M^-1 (tau_gen - h_C + g_gen), gravity pulling -z.
+
+    tau_gen is the full generalized applied force (S^T tau + J_c^T f + ...).
+    One forward-kinematics pass serves M, h_C and the gravity force; M is
+    solved by a batched Cholesky factorization (`linalg.spd_solve`), the
+    same code on every device."""
+    from quadrupedwholebodycontroller_tpu_torch.ops.linalg import spd_solve
+
+    h, kin, parts, _ = coriolis_bias_full(model, base_R, base_p, q, u)
+    M = mass_matrix_from_parts(model, kin, parts)
+    grav = gravity_force(model, kin, (0.0, 0.0, -9.81), parts)
+    return spd_solve(M, tau_gen - h + grav)

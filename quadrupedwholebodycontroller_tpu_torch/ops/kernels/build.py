@@ -130,8 +130,8 @@ def _declare_setup(lib, suffix, real) -> None:
     i = ctypes.c_int
     fn = getattr(lib, f"qwbc_setup_{suffix}")
     # pointer table, its length, the constant tables' lengths, B, the stride
-    # of ref_is_new, fused, sweeps, rho0, rho_eq, stream
-    fn.argtypes = [ctypes.POINTER(_PTR), i, i, i, i, i, i, i, real, real, _PTR]
+    # of ref_is_new, exact, fused, sweeps, rho0, rho_eq, stream
+    fn.argtypes = [ctypes.POINTER(_PTR), i, i, i, i, i, i, i, i, real, real, _PTR]
     fn.restype = i
 
 

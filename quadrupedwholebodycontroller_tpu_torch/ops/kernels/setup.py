@@ -20,13 +20,20 @@ split as M0 + sin(q) M1 + (1 - cos(q)) M2, masses, inertias, gains) and one
 of ints (parents, depths, ancestor masks), computed in float64 on the host
 and rounded once to the kernel's type.
 
+`exact_mode=True` (kernel K3x, its own launch counter
+`setup_batched_exact`) replaces the finite differences of Tdot and Jdot by
+their analytic tangents along the state flow, propagated through the same
+recursion in the kernel, and the centroidal bias reads the fresh
+d(T^-1)/dt; its plain version is `wbc_setup`'s exact branch (forward-mode
+AD through the rigid-body code), another derivation of the same numbers.
+
 Not carried over from the JAX function: `interpret`, the batch-minor
-`prepared_layout`, `stop_after` (a profiling truncation) and
-`exact_mode=True`, which raises.
+`prepared_layout` and `stop_after` (a profiling truncation).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -42,8 +49,8 @@ from quadrupedwholebodycontroller_tpu_torch.config import (
 )
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import build, prepare
 
-LAUNCHES = {"setup_batched": 0}
-PLAIN_CALLS = {"setup_batched": 0}
+LAUNCHES = {"setup_batched": 0, "setup_batched_exact": 0}
+PLAIN_CALLS = {"setup_batched": 0, "setup_batched_exact": 0}
 
 NUM_BODIES = 13          # compiled into csrc/setup.cu, with NUM_JOINTS, NUM_LEGS
 PREPARED = ("sH", "sA", "sg", "sl", "su", "rho", "wxs", "wzs", "wys", "d", "e")
@@ -130,11 +137,8 @@ def _result(A, g, l, u, H, prepared, h_c, Mc_jj, Jc_st_j, com, current_pose,
     )
 
 
-def _check_supported(params, exact_mode):
-    if exact_mode or params.exact_derivatives:
-        raise NotImplementedError(
-            "exact derivatives in the setup kernel (exact_mode): a later "
-            "slice of the port")
+def _counter(exact_mode) -> str:
+    return "setup_batched_exact" if exact_mode else "setup_batched"
 
 
 def _ref_is_new(ref_is_new, batch, device):
@@ -144,13 +148,15 @@ def _ref_is_new(ref_is_new, batch, device):
 
 def setup_batched_plain(model, params, obs, ref, carry, ref_is_new,
                         qp_params=None, exact_mode=False):
-    """Plain PyTorch version: `wbc_setup`, then (with `qp_params`) the
+    """Plain PyTorch version: `wbc_setup` (its exact branch with
+    `exact_mode`, else its finite differences, whatever
+    `params.exact_derivatives` says), then (with `qp_params`) the
     switch-masked warm start through `prepare_scaled_plain`."""
     from quadrupedwholebodycontroller_tpu_torch.control import wbc
 
-    _check_supported(params, exact_mode)
-    PLAIN_CALLS["setup_batched"] += 1
+    PLAIN_CALLS[_counter(exact_mode)] += 1
     rn = _ref_is_new(ref_is_new, obs.q.shape[0], obs.q.device)
+    params = dataclasses.replace(params, exact_derivatives=bool(exact_mode))
     s = wbc.wbc_setup(model, params, obs, ref, carry, rn)
     d, cu = s.qp_data, s.carry_updates
     prepared = None
@@ -167,7 +173,8 @@ def setup_batched_plain(model, params, obs, ref, carry, ref_is_new,
         cu["switch_flag"])
 
 
-def _run(launch, check, model, params, obs, ref, carry, ref_is_new, qp_params):
+def _run(launch, check, model, params, obs, ref, carry, ref_is_new, qp_params,
+         exact_mode):
     """Marshal the tensors into the kernel's pointer table, allocate the
     outputs and call `launch(suffix, *launcher arguments)`."""
     B, dtype, dev = obs.q.shape[0], obs.base_p.dtype, obs.base_p.device
@@ -224,7 +231,8 @@ def _run(launch, check, model, params, obs, ref, carry, ref_is_new, qp_params):
             *(tensors[k].data_ptr() if k in tensors else None for k in _POINTERS))
         qpp = qp_params
         launch(suffix, table, len(_POINTERS), mc.numel(), topo.numel(), B,
-               rn.stride(0), int(fused), int(qpp.scaling_iters) if fused else 0,
+               rn.stride(0), int(bool(exact_mode)), int(fused),
+               int(qpp.scaling_iters) if fused else 0,
                float(qpp.rho) if fused else 0.0,
                float(qpp.rho * qpp.rho_eq_scale) if fused else 0.0)
     return _result(
@@ -244,25 +252,28 @@ def setup_batched(model, params, obs, ref, carry, ref_is_new, qp_params=None,
     `com, current_pose, foot_pos` and `carry_updates`.  Every tensor is
     contiguous and owns its memory (no view of A enters the carry).
 
+    exact_mode: the analytic derivatives (K3x); the finite differences
+    otherwise, whatever `params.exact_derivatives` says (the caller
+    decides, as `control.wbc.wbc_step_batched` does).
+
     ref_is_new: a bool or a (B,) bool tensor of any stride."""
     if obs.base_p.device.type == "cpu":
         return setup_batched_plain(model, params, obs, ref, carry, ref_is_new,
                                    qp_params, exact_mode)
-    _check_supported(params, exact_mode)
 
     def launch(suffix, *args):
         build.launch("setup", suffix, *args,
                      torch.cuda.current_stream(obs.base_p.device).cuda_stream)
 
     out = _run(launch, build.check_inputs, model, params, obs, ref, carry,
-               ref_is_new, qp_params)
+               ref_is_new, qp_params, exact_mode)
     if obs.q.shape[0] > 0:
-        LAUNCHES["setup_batched"] += 1
+        LAUNCHES[_counter(exact_mode)] += 1
     return out
 
 
 def setup_batched_host(model, params, obs, ref, carry, ref_is_new,
-                       qp_params=None, reverse=False):
+                       qp_params=None, reverse=False, exact_mode=False):
     """`csrc/setup.cu` compiled as plain C++ and run on CPU tensors, one
     emulated thread per block (`build.host_lib`): the kernel's own
     arithmetic without a GPU, for tests.  `reverse` runs every stage's
@@ -281,5 +292,5 @@ def setup_batched_host(model, params, obs, ref, carry, ref_is_new,
         if err != 0:
             raise RuntimeError(f"host build of the setup kernel refused its arguments ({err})")
 
-    _check_supported(params, False)
-    return _run(launch, check, model, params, obs, ref, carry, ref_is_new, qp_params)
+    return _run(launch, check, model, params, obs, ref, carry, ref_is_new, qp_params,
+                exact_mode)

@@ -194,3 +194,34 @@ def frame_jacobians(model: RobotModel, kin: KinState):
 def robot_com(model: RobotModel, kin: KinState):
     """(..., 3) total CoM."""
     return torch.einsum("b,...bi->...i", model.mass, kin.body_com_w) / model.total_mass
+
+
+def body_com_jacobians(model: RobotModel, kin: KinState):
+    """(..., nb, 6, nv) mixed Jacobians at each body's CoM (the assembled
+    stack; the control step works from `body_com_jacobian_parts`)."""
+    return point_jacobians(model, kin, kin.body_com_w, tuple(range(model.num_bodies)))
+
+
+def body_velocities(model: RobotModel, base_R, base_p, q, u):
+    """Per-body CoM linear velocity and angular velocity, each (..., nb, 3)."""
+    J = body_com_jacobians(model, forward_kinematics(model, base_R, base_p, q))
+    vel6 = torch.einsum("...bij,...j->...bi", J, u)
+    return vel6[..., :3], vel6[..., 3:]
+
+
+def frame_velocities(model: RobotModel, kin: KinState, u):
+    """(..., nf, 6) mixed frame velocities [v_origin_world; omega_world]."""
+    return torch.einsum("...fij,...j->...fi", frame_jacobians(model, kin), u)
+
+
+def com_velocity(model: RobotModel, kin: KinState, u):
+    """(..., 3) CoM linear velocity."""
+    J = body_com_jacobians(model, kin)
+    v = torch.einsum("b,...bij,...j->...i", model.mass, J[..., :3, :], u)
+    return v / model.total_mass
+
+
+def state_flow(base_R, base_p, q, u):
+    """Time derivative of the configuration (base_R, base_p, q) under the
+    mixed velocity u: (Rdot, pdot, qdot) with Rdot = skew(omega_world) R."""
+    return spatial.skew(u[..., 3:6]) @ base_R, u[..., 0:3], u[..., 6:]

@@ -1,4 +1,5 @@
-"""Matmul-only dense linear algebra for the hot path.
+"""Dense linear algebra for the hot path, matmul-only apart from the
+simulator's Cholesky solve.
 
 Everything is batched matrix products and elementwise ops (`torch.matmul`),
 the part of the solve that is plain library code on either framework:
@@ -10,6 +11,7 @@ the part of the solve that is plain library code on either framework:
   * solve_kkt_schur        the active-set polish system via a Schur
                            complement with Newton-Schulz inverses
   * inv3 / spd_inv6 / spd_inv12   closed-form block-Schur inverses
+  * spd_solve              batched Cholesky solve (the simulator's M^-1)
 
 float32 products must run at full precision: Newton-Schulz, the refinement
 passes and the KKT residuals are meaningless at TF32 accuracy (reduced
@@ -190,3 +192,15 @@ def spd_inv12(M):
     """Closed-form-composed inverse of batched SPD (..., 12, 12): 6+6 block
     Schur over spd_inv6."""
     return _schur_inv(M, 6, spd_inv6, spd_inv6)
+
+
+def spd_solve(A, b):
+    """Solve A x = b for batched SPD A (..., n, n), b (..., n) or (..., n, k),
+    by a Cholesky factorization (`torch.linalg.cholesky_ex`, which never
+    syncs with the host: a matrix that is not SPD gives non-finite x, not an
+    exception).  The simulator's mass-matrix solve; one code path on every
+    device."""
+    vec = b.ndim == A.ndim - 1
+    L, _ = torch.linalg.cholesky_ex(A)
+    x = torch.cholesky_solve(b[..., None] if vec else b, L)
+    return x[..., 0] if vec else x

@@ -55,3 +55,42 @@ def axis_angle_to_matrix(axis, angle):
     K = skew(axis)
     eye = torch.eye(3, dtype=K.dtype, device=K.device)
     return eye + s * K + (1.0 - c) * (K @ K)
+
+
+def quat_to_matrix(q):
+    """(..., 4) quaternion (w, x, y, z) -> (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    s = 2.0 / (w * w + x * x + y * y + z * z)
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    row0 = torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1)
+    row1 = torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1)
+    row2 = torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def matrix_to_quat(R):
+    """(..., 3, 3) -> (..., 4) quaternion (w, x, y, z), branchless: each
+    component's magnitude from the diagonal, its sign from the skew part."""
+    m00, m11, m22 = R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]
+    half_sqrt = lambda v: torch.sqrt(torch.clamp_min(v, 1e-12)) / 2.0
+    qw = half_sqrt(1.0 + m00 + m11 + m22)
+    qx = torch.copysign(half_sqrt(1.0 + m00 - m11 - m22), R[..., 2, 1] - R[..., 1, 2])
+    qy = torch.copysign(half_sqrt(1.0 - m00 + m11 - m22), R[..., 0, 2] - R[..., 2, 0])
+    qz = torch.copysign(half_sqrt(1.0 - m00 - m11 + m22), R[..., 1, 0] - R[..., 0, 1])
+    q = torch.stack([qw, qx, qy, qz], dim=-1)
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def orthonormalize(R):
+    """Project a near-rotation matrix back onto SO(3) by Gram-Schmidt on its
+    first two columns (the integrator keeps the base rotation on the
+    manifold with it, without an SVD)."""
+    x = R[..., :, 0]
+    y = R[..., :, 1]
+    x = x / torch.linalg.norm(x, dim=-1, keepdim=True)
+    y = y - torch.sum(x * y, dim=-1, keepdim=True) * x
+    y = y / torch.linalg.norm(y, dim=-1, keepdim=True)
+    z = torch.linalg.cross(x, y)
+    return torch.stack([x, y, z], dim=-1)

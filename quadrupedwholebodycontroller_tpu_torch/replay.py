@@ -45,16 +45,18 @@ def step_inputs(traj, t: int, batch: int, dtype, offsets=None, device="cuda"):
 
 
 def replay(model, traj, steps, batch: int, qpp: QPSolverParams, offsets=None,
-           on_step=None, timed: bool = False, setup_backend: str = "auto"):
+           on_step=None, timed: bool = False, setup_backend: str = "auto",
+           cparams: ControllerParams | None = None):
     """Drive `wbc_step_batched` over the recorded steps `steps` (an iterable
     of step indices) from `init_carry` and an invalid cache, on the model's
     device and dtype.  `on_step(t, out, ms)` sees every step's output; with
     `timed` the device is synchronised around each step and `ms` is the
     step's host time, else `ms` is None.  `setup_backend` is the step's
-    ("auto": the fused setup kernel; "torch": the tensor-code setup).
+    ("auto": the fused setup kernel; "torch": the tensor-code setup), and
+    `cparams` its controller parameters (default `ControllerParams()`).
     Returns the final (carry, cache)."""
     dtype, device = model.mass.dtype, model.mass.device
-    cp = ControllerParams()
+    cp = ControllerParams() if cparams is None else cparams
     carry = wbc.init_carry(batch, dtype, device)
     cache = qp.make_cache(batch, QP_NUM_VARS, QP_NUM_CONSTRAINTS, qpp, dtype, device)
     inputs = [(t, *step_inputs(traj, t, batch, dtype, offsets, device)) for t in steps]

@@ -47,7 +47,9 @@ def test_port_has_the_expected_modules():
                  "ops/kernels/admm_zy.py", "ops/kernels/admm.py",
                  "ops/kernels/polish.py", "ops/kernels/setup.py",
                  "ops/kernels/ns_warm.py", "replay.py",
-                 "models/anymal.py", "models/robot_model.py"):
+                 "models/anymal.py", "models/robot_model.py",
+                 "planner/gait.py", "planner/trot.py", "sim/world.py",
+                 "sim/scenario.py", "sim/rollout.py"):
         assert want in rel, want
     for src in ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh", "prepare.cu",
                 "admm_zy.cu", "admm.cu", "polish.cu", "setup.cu", "ns_warm.cu"):
@@ -146,15 +148,16 @@ def test_cpu_tensors_take_the_plain_versions():
         base_R=torch.eye(3, dtype=H.dtype).expand(2, 3, 3), base_p=torch.zeros(2, 3, dtype=H.dtype),
         base_vel=torch.zeros(2, 6, dtype=H.dtype), q=torch.zeros(2, 12, dtype=H.dtype),
         qd=torch.zeros(2, 12, dtype=H.dtype))
-    setup.setup_batched(anymal_d_model(H.dtype, "cpu"), ControllerParams(), obs,
-                        wbc.Reference.standing(ControllerParams(), 2, H.dtype, "cpu"),
-                        wbc.init_carry(2, H.dtype, "cpu"), True)
+    for exact in (False, True):
+        setup.setup_batched(anymal_d_model(H.dtype, "cpu"), ControllerParams(), obs,
+                            wbc.Reference.standing(ControllerParams(), 2, H.dtype, "cpu"),
+                            wbc.init_carry(2, H.dtype, "cpu"), True, exact_mode=exact)
     assert kernels.plain_counts() == {
         "prepare_scaled": 1, "admm_zy_iterations_res": 1, "admm_iterations_res": 1,
         "admm_iterations": 1, "polish_solve_compact": 1, "polish_solve_dense": 1,
-        "setup_batched": 1, "ns_inverse_warm": 1}
+        "setup_batched": 1, "setup_batched_exact": 1, "ns_inverse_warm": 1}
     assert not any(kernels.launch_counts().values())
-    assert len(kernels.launch_counts()) == 8
+    assert len(kernels.launch_counts()) == 9
 
 
 def test_unported_options_raise():
@@ -175,10 +178,6 @@ def test_unported_options_raise():
     step = lambda qpp=QPSolverParams(), cp=ControllerParams(), **kw: wbc.wbc_step_batched(
         model, cp, qpp, obs, ref, carry, True, kw.pop("qp_backend", "kernel"),
         kw.pop("qp_cache", cache), False, **kw)
-    # the fused setup kernel is the default path; its exact mode is not ported
-    for backend in ("auto", "kernel", "torch"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            step(setup_backend=backend, cp=ControllerParams(exact_derivatives=True))
     with pytest.raises(ValueError, match="setup_backend"):
         step(setup_backend="pallas")
     for bad in (dict(comp_final_refine=1), dict(drop_warm_iters=4), dict(cond_hoist=1),
@@ -187,21 +186,42 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match="not ported"):
             step(QPSolverParams(**bad))
     with pytest.raises(NotImplementedError):
-        step(cp=ControllerParams(exact_derivatives=True))
-    with pytest.raises(NotImplementedError):
         step(qp_backend="xla")
     H, A, g, l, u = _cpu_problem()[:5]
     with pytest.raises(NotImplementedError, match="kernel path"):
         qp.solve_batched(qp.QPData(H=H, g=g, A=A, l=l, u=u),
                          qp.QPState.zeros(3, 6, 8, torch.float64, "cpu"), backend="torch")
-    # sigma > 0, a warm-iterated polish Schur inverse and a step without a
-    # cache are ported now: they run
+    # sigma > 0, a warm-iterated polish Schur inverse, a step without a
+    # cache and exact derivatives (every setup route) are ported now: they run
     for ok in (dict(sigma=1e-6), dict(ns_warm_iters_polish=1)):
         assert len(step(QPSolverParams(**ok))) == 3
     assert len(step(qp_cache=None)) == 2
+    for backend in ("auto", "kernel", "torch"):
+        for epilogue in (False, True):
+            cp = ControllerParams(exact_derivatives=True, exact_epilogue=epilogue)
+            assert len(step(setup_backend=backend, cp=cp)) == 3
 
 
 def test_tf32_matmul_is_off():
     import quadrupedwholebodycontroller_tpu_torch.ops.linalg  # noqa: F401  (checks at import)
 
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_exact_setup_takes_the_plain_version_only_for_cpu_tensors():
+    """The exact mode's wrapper branches on the tensors' device alone: a CPU
+    tensor runs `wbc_setup`'s exact branch and counts a plain call under its
+    own name; no `NotImplementedError` is left for exact derivatives."""
+    import inspect
+
+    from quadrupedwholebodycontroller_tpu_torch.control import wbc
+    from quadrupedwholebodycontroller_tpu_torch.ops.kernels import setup
+
+    src = inspect.getsource(setup.setup_batched)
+    assert 'device.type == "cpu"' in src and "setup_batched_plain" in src
+    assert "NotImplementedError" not in inspect.getsource(setup)
+    wsrc = inspect.getsource(wbc)
+    raises = [wsrc[i:i + 160] for i in range(len(wsrc))
+              if wsrc.startswith("raise NotImplementedError", i)]
+    assert raises and not any("exact" in r for r in raises)   # qp_backend only
+    assert set(setup.LAUNCHES) == {"setup_batched", "setup_batched_exact"}

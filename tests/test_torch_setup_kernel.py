@@ -205,12 +205,19 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_exact_derivatives_raise():
+    """Nothing raises for exact derivatives any more: `exact_mode` selects
+    the exact variant (its own counter), and `params.exact_derivatives` alone
+    does not (the control step decides the mode, as in the JAX package)."""
     model, cp, obs, ref, carry = _torch_problem("float64", steps=0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsetup.setup_batched(model, cp, obs, ref, carry, True, exact_mode=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsetup.setup_batched(model, ControllerParams(exact_derivatives=True), obs, ref,
-                             carry, True)
+    kernels.reset_counts()
+    exact = tsetup.setup_batched(model, cp, obs, ref, carry, True, exact_mode=True)
+    fd = tsetup.setup_batched(model, ControllerParams(exact_derivatives=True), obs, ref,
+                              carry, True)
+    assert kernels.plain_counts()["setup_batched_exact"] == 1
+    assert kernels.plain_counts()["setup_batched"] == 1
+    # first cycle: the finite differences are zero, the tangents are not
+    assert float(fd["carry_updates"]["tdot_inv"].abs().max()) == 0.0
+    assert float(exact["carry_updates"]["tdot_inv"].abs().max()) > 1e-3
 
 
 def test_pack_constants_layout():
