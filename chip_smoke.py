@@ -246,7 +246,7 @@ REPLACES = {
     K8: _JAX + "ns_kernel.py:126",
 }
 _CSRC = "quadrupedwholebodycontroller_tpu_torch/csrc/"
-SOURCES = {K4: _CSRC + "prepare.cu", K1: _CSRC + "admm_zy.cu", K2: _CSRC + "polish.cu",
+SOURCES = {K4: _CSRC + "prepare.cu", K1: _CSRC + "admm_zy.cu", K2: _CSRC + "polish_compact.cu",
            K3: _CSRC + "setup.cu", K5: _CSRC + "admm.cu", K6: _CSRC + "admm.cu",
            K7: _CSRC + "polish.cu", K8: _CSRC + "ns_warm.cu", K3X: _CSRC + "setup.cu"}
 SIGMA = 1e-6     # the tuned proximal weight of the sigma path
@@ -457,6 +457,13 @@ def setup_bytes(args, got, exact=False) -> int:
     n_core = len(SETUP_RESULT) + len(SETUP_CARRY)
     written = list(got[:n_core - 2]) + list(got[n_core:])   # the two flags: a byte each
     return sum(size(t) for t in read) + sum(size(t) for t in written) + 2 * got[0].shape[0]
+
+
+def sub_batch(args, b):
+    """The first b scenarios of a kernel's arguments, contiguous."""
+    take = lambda t: t[:b].contiguous() if isinstance(t, torch.Tensor) else t
+    return tuple(tuple(take(x) for x in a) if isinstance(a, tuple) else take(a)
+                 for a in args)
 
 
 def flat_tensors(args):
@@ -673,16 +680,24 @@ def check_kernels():
             if name == K8:
                 ns_warm_extra(rows[K8], case, fn, plain, args, kw, got)
             if name in (K3, K3X):
-                # the variant without the prepare tail, and the same launch
-                # again: a race between threads would rarely repeat bit for bit
+                # the variant without the prepare tail
                 kw0 = dict(qp_params=None)
                 rows[name]["ms_plain_variant"] = time_ms(lambda: fn(*args, **kw0),
                                                          host_ahead=True)
+            if name == K2:
+                # the sub-batches of the main path: the rescue, the drop
+                # round, the rescue's round 2
+                for b in (128, 64, 32):
+                    ab = sub_batch(args, b)
+                    rows[K2][f"ms_B{b}"] = time_ms(lambda: fn(*ab, **kw), host_ahead=True)
+            if name in (K3, K3X, K2):
+                # the same launch again: a race between threads would rarely
+                # repeat bit for bit
                 again = fn(*args, **kw)
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    raise AssertionError("setup kernel: two launches on the same "
-                                         "inputs differ")
+                    raise AssertionError(f"{name}: two launches on the same inputs differ")
+                rows[name]["repeat_launch_bit_identical"] = True
         # the same cases in float64 (the scalar type is a template
         # parameter) at the full batch, and both types at a ragged batch
         for batch, dtype in ((BATCH, torch.float64), (37, torch.float32),
@@ -811,12 +826,38 @@ def drive_path(path: str, offsets):
     run_walk(BATCH, qpp, offsets, steps=3, setup_backend=backend, cparams=cp)
     n_steps = TRAJ["base_R"].shape[0] if spec["steps"] is None else spec["steps"]
     kept, last = [], {}
-    orig_solve = qp.solve_batched
+    orig_solve, orig_polish, orig_core = qp.solve_batched, polish.polish_solve, qp._rescue_core
+    # K2's launches by the solver stage that makes them: the first polish of
+    # a solve is round 1, a later one the drop round; inside the rescue the
+    # first polish of a stage is its round 1, a later one its round 2
+    k2_stages, where = {}, {"solve": 0, "rescue": None}
 
     def solve_spy(data, *a, **k):           # keeps references only: no device work
+        where["solve"] = 0
         out = orig_solve(data, *a, **k)
         last["data"], last["state"] = data, out[0]
         return out
+
+    def core_spy(*a, **k):
+        where["rescue"] = 0
+        try:
+            return orig_core(*a, **k)
+        finally:
+            where["rescue"] = None
+
+    def polish_spy(H, *a, **k):
+        if isinstance(H, tuple):           # compact H: K2
+            if where["rescue"] is None:
+                stage = "round1" if where["solve"] == 0 else "drop_round"
+                where["solve"] += 1
+            else:
+                stage = "rescue" if where["rescue"] == 0 else "rescue_round2"
+                where["rescue"] += 1
+            row = k2_stages.setdefault(stage, {"launches": 0, "batch_sizes": {}})
+            b = a[2].shape[0]
+            row["launches"] += 1
+            row["batch_sizes"][b] = row["batch_sizes"].get(b, 0) + 1
+        return orig_polish(H, *a, **k)
 
     def record(t, out):
         if t < COMPARE_STEPS:
@@ -827,12 +868,16 @@ def drive_path(path: str, offsets):
     kernels.reset_counts()
     qp.HOST_SYNCS = 0
     torch.cuda.reset_peak_memory_stats()
-    qp.solve_batched = solve_spy
+    qp.solve_batched, polish.polish_solve, qp._rescue_core = solve_spy, polish_spy, core_spy
     try:
         ms, kkts, flagged = run_walk(BATCH, qpp, offsets, record, n_steps, backend, cp)
     finally:
-        qp.solve_batched = orig_solve
+        qp.solve_batched, polish.polish_solve, qp._rescue_core = (
+            orig_solve, orig_polish, orig_core)
     launches = kernels.launch_counts()
+    if sum(r["launches"] for r in k2_stages.values()) != launches[K2]:
+        raise AssertionError(f"the {path} path: K2 by stage {k2_stages}, {launches[K2]} "
+                             "launches")
     syncs = qp.HOST_SYNCS
     n_flag = check_run(f"the {path} path", launches, kernels.plain_counts(), kkts, flagged,
                        spec["runs"], spec["never"], n_steps, spec.get("quality", True))
@@ -844,7 +889,8 @@ def drive_path(path: str, offsets):
                "exact_epilogue": bool(cp and cp.exact_epilogue),
                "rescue_batch": qpp.rescue_batch,
                "quality_asserted": spec.get("quality", True),
-               **step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs)}
+               **step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs),
+               "k2_launches_by_stage": k2_stages}
     if not summary["quality_asserted"]:
         # where the burst sits: flagged scenarios per step, on the steps
         # that have any

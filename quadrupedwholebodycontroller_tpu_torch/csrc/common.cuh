@@ -52,6 +52,65 @@ inline int allow_shared_memory(size_t bytes) {
 
 #endif  // __CUDACC__
 
+// Hardware-only pieces behind helpers with a plain host definition:
+//   * async_copy(dst, src): one element from device memory into shared
+//     memory by cp.async (4 or 8 bytes, so the destination may be a padded
+//     row), async_commit() closing a group, async_wait<N>() waiting until at
+//     most N of this thread's groups are in flight (a barrier must follow
+//     before other threads read the copies); on the host a plain copy;
+//   * QWBC_LANES(i, n) / lead_warp() / lead_lane() / warp_max(v): a stage
+//     run by the first warp alone, its lanes striding over n items and
+//     reducing with shuffles; on the host the one thread runs every item
+//     and the reduction is the value itself; warp_index(), warps_per_block()
+//     and lead_lane_of_warp() name a thread's warp (on the host: one warp);
+//   * QWBC_FOR_UNIFORM(i, n): QWBC_FOR with the same number of rounds on
+//     every thread, for bodies with warp-wide reductions.
+#ifdef __CUDACC__
+template <typename T>
+__device__ __forceinline__ void async_copy(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "cp.async of 4 or 8 bytes");
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+#define QWBC_LANES(i, n) \
+  _Pragma("unroll 1") for (int i = (int)(threadIdx.x & 31u); i < (n); i += 32)
+__device__ __forceinline__ bool lead_warp() { return threadIdx.x < 32; }
+__device__ __forceinline__ bool lead_lane() { return threadIdx.x == 0; }
+__device__ __forceinline__ bool lead_lane_of_warp() { return (threadIdx.x & 31u) == 0; }
+__device__ __forceinline__ int warp_index() { return (int)(threadIdx.x >> 5); }
+__device__ __forceinline__ int warps_per_block() { return (int)(blockDim.x >> 5); }
+// a stage whose items are spread as QWBC_FOR spreads them, but with the
+// same number of rounds on every thread, so that a warp-wide reduction in
+// the body runs on full warps: on the last round i may be >= n
+#define QWBC_FOR_UNIFORM(i, n)                                               \
+  _Pragma("unroll 1")                                                        \
+  for (int i##_b = 0; i##_b < (n); i##_b += (int)blockDim.x)                 \
+    if (const int i = i##_b + (int)threadIdx.x; true)
+#else
+template <typename T>
+inline void async_copy(T* dst, const T* src) { *dst = *src; }
+inline void async_commit() {}
+template <int N>
+inline void async_wait() {}
+#define QWBC_LANES(i, n) QWBC_FOR(i, n)
+inline bool lead_warp() { return true; }
+inline bool lead_lane() { return true; }
+inline bool lead_lane_of_warp() { return true; }
+inline int warp_index() { return 0; }
+inline int warps_per_block() { return 1; }
+#define QWBC_FOR_UNIFORM(i, n) QWBC_FOR(i, n)
+#endif  // __CUDACC__
+
 // max that propagates NaN (fmax would swallow it and certify a bad iterate)
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) {
@@ -66,6 +125,16 @@ __device__ __forceinline__ T clip(T v, T lo, T hi) {   // min(max(v, lo), hi), N
 
 template <typename T>
 __device__ __forceinline__ T absv(T v) { return v < T(0) ? -v : v; }
+
+// NaN-propagating max over the lanes of a warp (QWBC_LANES stages)
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+#ifdef __CUDACC__
+  for (int o = 16; o > 0; o >>= 1)
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+#endif
+  return v;
+}
 
 // Cooperative load of a dense row-major (rows, cols) matrix into shared
 // memory with row stride `stride`; global reads are coalesced.

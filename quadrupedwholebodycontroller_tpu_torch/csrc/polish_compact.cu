@@ -1,0 +1,472 @@
+// Active-set polish solve + coupled refinement with a compact H and H^-1
+// (a diagonal plus one dense k*k block), one block per scenario.
+//
+// Replaces the TPU kernel ops/pallas/polish_kernel.py::polish_solve of the
+// JAX package in its compact form (_polish_kernel_compact).  It computes
+//   y = Sinv (-(da*b + B Hinv g)),  x = Hinv (-g - B^T y),
+//   `refine` passes  r1 = -g - H x - B^T y,  r2 = da*b - B x - D y,
+//                    dy = Sinv (B Hinv r1 - r2),  dx = Hinv (r1 - B^T dy),
+//   z = clip(A x, l, u), the relative KKT residuals pr, du and the sign
+//   violation sv,
+// with B = da * A never formed.  Any batch size B >= 1, no padding.
+//
+// Bound on this card: bytes.  Sinv (m*m), A (m*n) and the two k*k blocks
+// are about 33 KB per scenario in float32 (n = 42, m = 70, k = 12: Sinv
+// 19.6 KB, A 11.8 KB) against about 0.17 Mflop for the solve and five
+// refinement passes.  The matrices are read from device memory once into
+// shared memory and the whole cascade runs from there.
+//
+// What the design does about the shared-memory traffic.  Measured on an
+// NVIDIA H100 (tools/torch_kernel_times.py, with 0 and 5 refinement
+// passes), the one-thread-per-row kernel this replaces was not held back
+// by shared-memory bandwidth: at B = 32 a block took ~50 us, 31 of them
+// for the load (each element waited for in turn), the first solve and the
+// certificate, and ~0.7 us for each barrier-separated stage whatever its
+// arithmetic; at B = 4096 the batch runs in ~5 waves of 6 blocks an SM.
+// The sums keep that kernel's order exactly: every dot product is one
+// accumulator over j = 0, 1, ... (splitting it across lanes re-rounds the
+// polish, and the control step's path-against-path torque checks sit close
+// enough to the certificate's edge to notice), so the outputs are the old
+// kernel's bit for bit.  Within that:
+//   * the load is asynchronous and all in flight at once (cp.async, 4 or 8
+//     bytes an element into the padded rows): A, the H blocks and the
+//     vectors first, Sinv second, so the first two stages (H^-1 g, A H^-1
+//     g) run while Sinv arrives;
+//   * a dot product keeps the loads of its next eight terms in flight
+//     while the multiply-adds of these eight run, and takes the vector's
+//     eight by two 16-byte loads (one 16-byte broadcast serves every row;
+//     the vector regions are padded to eight words); only the last batch
+//     checks the length;
+//   * one thread an output, the variables on warps of their own in the
+//     stages that hold both, so no warp runs a 70-long column chain and a
+//     42-long row chain one after the other; the B^T y that the next
+//     pass's residual needs is summed beside B^T dy, one stage earlier;
+//   * the certificate's eight maxima (order-free): seven reduced per warp
+//     in the last product stage, the sign violation by the first warp
+//     after one barrier.
+// Shared memory is the matrices with odd row strides (a thread a row reads
+// 32 different banks) and 7 + 10 padded vectors (37.5 KB in float32: 6
+// blocks an SM; 75 KB in float64: 3).
+//
+// Written with the stage macros of common.cuh alone (every value that
+// crosses a barrier lives in shared memory), so the file also compiles as
+// plain C++ (see common.cuh), where the tests check it.
+#include "common.cuh"
+
+namespace qwbc {
+
+// one thread an item; in the stages over both the variables and the rows
+// the n = 42 variables take the first 64 threads and the m = 70 rows the
+// next, so no warp runs both kinds: 134 of 160 threads, one round
+constexpr int POLISH_THREADS = 160;
+constexpr int NW = POLISH_THREADS / 32;   // warps of a block
+constexpr int NMAX = 7;  // block-wide maxima of the certificate before the sign violation
+
+__host__ __device__ inline int pad8(int words) { return (words + 7) & ~7; }
+
+// the matrices, then the vectors, each vector region padded to eight words
+__host__ __device__ inline int matrix_words(int n, int m, int k) {
+  return pad8(m * row_stride(m) + m * row_stride(n) + 2 * k * row_stride(k));
+}
+
+__host__ __device__ inline size_t polish_compact_words(int n, int m, int k) {
+  return (size_t)matrix_words(n, m, k) + 7 * (size_t)pad8(n) + 10 * (size_t)pad8(m) +
+         NMAX * NW;
+}
+
+// Eight terms of a dot product into registers; CHECK: the batch may pass
+// len (zeros there).  VV: v is 16-byte aligned at j0 and readable up to
+// j0 + 8 (a vector region padded to eight words), so its eight entries
+// come in by 16-byte loads.
+template <bool VV, bool CHECK, typename T>
+__device__ __forceinline__ void load8(const T* a, int sa, const T* v, int j0, int len,
+                                      T* x, T* w) {
+#pragma unroll
+  for (int u = 0; u < 8; ++u) x[u] = !CHECK || j0 + u < len ? a[(j0 + u) * sa] : T(0);
+#ifdef __CUDACC__
+  if constexpr (VV) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 p = *reinterpret_cast<const float4*>(v + j0);
+      const float4 q = *reinterpret_cast<const float4*>(v + j0 + 4);
+      w[0] = p.x; w[1] = p.y; w[2] = p.z; w[3] = p.w;
+      w[4] = q.x; w[5] = q.y; w[6] = q.z; w[7] = q.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; u += 2) {
+        const double2 p = *reinterpret_cast<const double2*>(v + j0 + u);
+        w[u] = p.x; w[u + 1] = p.y;
+      }
+    }
+    return;
+  }
+#endif
+#pragma unroll
+  for (int u = 0; u < 8; ++u) w[u] = !CHECK || j0 + u < len ? v[j0 + u] : T(0);
+}
+
+// sum_j a[j * sa] * v[j] for j = 0, 1, ... in order, in one accumulator
+// (the rounding of the plain loop), the loads of the next eight terms in
+// flight while the multiply-adds of these eight run; only the last batch
+// checks against len
+template <bool VV, typename T>
+__device__ __forceinline__ T seq_dot(const T* a, int sa, const T* v, int len) {
+  T acc = T(0), xa[8], wa[8], xb[8], wb[8];
+  const auto load = [&](int j0, T* x, T* w) {
+    if (j0 + 8 <= len) load8<VV, false>(a, sa, v, j0, len, x, w);
+    else load8<VV, true>(a, sa, v, j0, len, x, w);
+  };
+  const auto fma8 = [&](int j0, const T* x, const T* w) {
+    if (j0 + 8 <= len) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc += x[u] * w[u];
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (j0 + u < len) acc += x[u] * w[u];
+    }
+  };
+  if (len <= 0) return acc;
+  load(0, xa, wa);
+#pragma unroll 1
+  for (int j0 = 0;; j0 += 16) {
+    if (j0 + 8 < len) load(j0 + 8, xb, wb);
+    fma8(j0, xa, wa);
+    if (j0 + 8 >= len) break;
+    if (j0 + 16 < len) load(j0 + 16, xa, wa);
+    fma8(j0 + 8, xb, wb);
+    if (j0 + 16 >= len) break;
+  }
+  return acc;
+}
+
+// (diag + blk at rows start:start+k) @ v for row `row`; diag is zero on the
+// block rows, so the two terms never overlap
+template <typename T>
+struct Compact {
+  const T* diag;
+  const T* blk;
+  int sk, start, k;
+  __device__ __forceinline__ T operator()(int row, const T* v) const {
+    if (row >= start && row < start + k)
+      return seq_dot<false>(blk + (row - start) * sk, 1, v + start, k);
+    return diag[row] * v[row];
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void async_load_vector(T* dst, const T* __restrict__ src,
+                                                  int len) {
+  QWBC_FOR(i, len) async_copy(dst + i, src + i);
+}
+
+// a row-major (rows, cols) matrix into rows of stride ld, element by element
+template <typename T>
+__device__ __forceinline__ void async_load_matrix(T* dst, const T* __restrict__ src,
+                                                  int rows, int cols, int ld) {
+  if (rows * cols == 0) return;
+#ifdef __CUDACC__
+  const int step = blockDim.x, dr = step / cols, dc = step - dr * cols;
+  int r = threadIdx.x / cols, c = threadIdx.x - r * cols;
+  for (int idx = threadIdx.x; idx < rows * cols; idx += step) {
+    async_copy(dst + r * ld + c, src + idx);
+    r += dr;
+    c += dc;
+    if (c >= cols) { c -= cols; ++r; }
+  }
+#else
+  QWBC_FOR(idx, rows * cols) {
+    const int r = idx / cols, c = idx - r * cols;
+    async_copy(dst + r * ld + c, src + idx);
+  }
+#endif
+}
+
+template <typename T>
+__device__ void polish_compact_block(
+    const T* __restrict__ hd, const T* __restrict__ hblk,
+    const T* __restrict__ hid, const T* __restrict__ hiblk,
+    const T* __restrict__ Sinv, const T* __restrict__ A,
+    const T* __restrict__ da, const T* __restrict__ g, const T* __restrict__ bb,
+    const T* __restrict__ l, const T* __restrict__ u,
+    T* __restrict__ xo, T* __restrict__ yo, T* __restrict__ zo,
+    T* __restrict__ pr, T* __restrict__ du, T* __restrict__ sv,
+    int b, int n, int m, int k, int start, int refine, T reg, T* smem) {
+  const int sn = row_stride(n), sm = row_stride(m), sk = row_stride(k);
+  T* Ss = smem;               // m * sm   Sinv
+  T* As = Ss + m * sm;        // m * sn   A
+  T* Hb = As + m * sn;        // k * sk   H block
+  T* Hib = Hb + k * sk;       // k * sk   H^-1 block
+  const int n8 = pad8(n), m8 = pad8(m);
+  T* hds = smem + matrix_words(n, m, k);   // n   H diagonal
+  T* hids = hds + n8;         // n        H^-1 diagonal
+  T* gs = hids + n8;          // n        g
+  T* xs = gs + n8;            // n        x
+  T* r1 = xs + n8;            // n        r1; H x in the tail
+  T* tn = r1 + n8;            // n        scratch over the variables; A^T y in the tail
+  T* btw = tn + n8;           // n        B^T y = A^T (da * y)
+  T* das = btw + n8;          // m        da
+  T* dab = das + m8;          // m        b, then da * b
+  T* Ds = dab + m8;           // m        D = (1 - da) - reg * da
+  T* ls = Ds + m8;            // m        l
+  T* us = ls + m8;            // m        u
+  T* ys = us + m8;            // m        y
+  T* ws = ys + m8;            // m        da * y, then da * dy
+  T* r2 = ws + m8;            // m        r2, then dy
+  T* tm = r2 + m8;            // m        Sinv's right-hand side; A x in the tail
+  T* wn = tm + m8;            // m        da * (y + dy)
+  T* red = wn + m8;           // NMAX*NW  per-warp maxima of the certificate
+  const Compact<T> H{hds, Hb, sk, start, k}, Hinv{hids, Hib, sk, start, k};
+  const int nc = (n + 31) & ~31;   // items of the variables in the mixed stages
+  const size_t bn = (size_t)b * n, bm = (size_t)b * m;
+  // row r of A or Sinv, column c of A, times a vector
+  // (the vectors are padded regions: 16-byte loads)
+  auto a_row = [&](int r, const T* v) { return seq_dot<true>(As + r * sn, 1, v, n); };
+  auto s_row = [&](int r, const T* v) { return seq_dot<true>(Ss + r * sm, 1, v, m); };
+  auto a_col = [&](int c, const T* w) { return seq_dot<true>(As + c, sn, w, m); };
+
+  // A, the blocks and the vectors first, Sinv second
+  async_load_matrix(As, A + (size_t)b * m * n, m, n, sn);
+  async_load_matrix(Hb, hblk + (size_t)b * k * k, k, k, sk);
+  async_load_matrix(Hib, hiblk + (size_t)b * k * k, k, k, sk);
+  async_load_vector(hds, hd + bn, n);
+  async_load_vector(hids, hid + bn, n);
+  async_load_vector(gs, g + bn, n);
+  async_load_vector(das, da + bm, m);
+  async_load_vector(dab, bb + bm, m);
+  async_load_vector(ls, l + bm, m);
+  async_load_vector(us, u + bm, m);
+  async_commit();
+  async_load_matrix(Ss, Sinv + (size_t)b * m * m, m, m, sm);
+  async_commit();
+  async_wait<1>();
+  QWBC_SYNC();
+
+  // y = Sinv (-(da*b + B Hinv g)),  x = Hinv (-g - B^T y)
+  QWBC_FOR(it, n + m + NMAX * NW) {
+    if (it < n) {
+      tn[it] = Hinv(it, gs);
+    } else if (it < n + m) {
+      const int r = it - n;
+      const T a = das[r];
+      dab[r] = a * dab[r];
+      Ds[r] = (T(1) - a) - reg * a;
+    } else {
+      red[it - n - m] = T(0);
+    }
+  }
+  QWBC_SYNC();
+  QWBC_FOR(r, m) tm[r] = -(dab[r] + das[r] * a_row(r, tn));
+  async_wait<0>();
+  QWBC_SYNC();
+  QWBC_FOR(r, m) {
+    const T y = s_row(r, tm);
+    ys[r] = y;
+    ws[r] = das[r] * y;
+  }
+  QWBC_SYNC();
+  QWBC_FOR(c, n) {
+    const T s = a_col(c, ws);
+    btw[c] = s;
+    tn[c] = -gs[c] - s;
+  }
+  QWBC_SYNC();
+  QWBC_FOR(c, n) xs[c] = Hinv(c, tn);
+  QWBC_SYNC();
+
+  for (int pass = 0; pass < refine; ++pass) {
+    // r1 = -g - H x - B^T y (per variable; B^T y from the stage before),
+    // r2 = da*b - B x - D y (per row)
+    QWBC_FOR(it, nc + m) {
+      if (it < n) {
+        r1[it] = -gs[it] - H(it, xs) - btw[it];
+      } else if (it >= nc) {
+        const int r = it - nc;
+        r2[r] = dab[r] - das[r] * a_row(r, xs) - Ds[r] * ys[r];
+      }
+    }
+    QWBC_SYNC();
+    // dy = Sinv (B Hinv r1 - r2)
+    QWBC_FOR(c, n) tn[c] = Hinv(c, r1);
+    QWBC_SYNC();
+    QWBC_FOR(r, m) tm[r] = das[r] * a_row(r, tn) - r2[r];
+    QWBC_SYNC();
+    QWBC_FOR(r, m) {
+      const T dy = s_row(r, tm);
+      r2[r] = dy;
+      ws[r] = das[r] * dy;
+      wn[r] = das[r] * (ys[r] + dy);   // da * y of the next pass
+    }
+    QWBC_SYNC();
+    // dx = Hinv (r1 - B^T dy), and beside it B^T y of the next pass
+    QWBC_FOR(it, nc + n) {
+      if (it < n) tn[it] = r1[it] - a_col(it, ws);
+      else if (it >= nc) btw[it - nc] = a_col(it - nc, wn);
+    }
+    QWBC_SYNC();
+    QWBC_FOR(it, nc + m) {
+      if (it < n) {
+        xs[it] = xs[it] + Hinv(it, tn);
+      } else if (it >= nc) {
+        const int r = it - nc;
+        ys[r] = ys[r] + r2[r];
+      }
+    }
+    QWBC_SYNC();
+  }
+
+  // z = clip(A x), the outputs, and the maxima of the relative KKT
+  // residuals (OSQP normalization), as kkt_epilogue takes them: finite
+  // bounds, |Ax|, |Ax - clip(Ax)|, |Hx|, |A^T y|, |g|, |Hx + g + A^T y|;
+  // each warp reduces its items' values (every lane takes part, with zeros
+  // past the last item)
+  const T big = T(1e20), fin = T(1e19);
+  QWBC_FOR_UNIFORM(it, nc + m) {
+    T v[NMAX] = {};
+    if (it < n) {
+      const T hx = H(it, xs), aty = a_col(it, ys), gu = gs[it];   // A^T y, not active-masked
+      xo[bn + it] = xs[it];
+      r1[it] = hx;
+      tn[it] = aty;
+      v[3] = absv(hx);
+      v[4] = absv(aty);
+      v[5] = absv(gu);
+      v[6] = absv(hx + gu + aty);
+    } else if (it >= nc && it < nc + m) {
+      const int r = it - nc;
+      const T lo = ls[r], uo = us[r], ax = a_row(r, xs);
+      tm[r] = ax;
+      zo[bm + r] = clip(ax, lo, uo);
+      yo[bm + r] = ys[r];
+      v[0] = nan_max(absv(lo) < fin ? absv(lo) : T(0), absv(uo) < fin ? absv(uo) : T(0));
+      v[1] = absv(ax);
+      v[2] = absv(ax - clip(ax, lo, uo));
+    }
+#pragma unroll
+    for (int q = 0; q < NMAX; ++q) {
+      const T w = warp_max(v[q]);
+      if (lead_lane_of_warp())
+        red[q * NW + warp_index()] = nan_max(red[q * NW + warp_index()], w);
+    }
+  }
+  QWBC_SYNC();
+
+  // the scales, then the sign violation over the rows, by one warp
+  if (lead_warp()) {
+    T mx[NMAX];
+#pragma unroll
+    for (int q = 0; q < NMAX; ++q) {
+      T w = T(0);
+      QWBC_LANES(i, warps_per_block()) w = nan_max(w, red[q * NW + i]);
+      mx[q] = warp_max(w);
+    }
+    const T pscale = nan_max(T(1), nan_max(mx[1], mx[0]));
+    const T dscale = nan_max(T(1), nan_max(mx[3], nan_max(mx[4], mx[5])));
+    T vsv = T(0);
+    QWBC_LANES(r, m) {
+      const T lo = ls[r], uo = us[r], ax = tm[r], y = ys[r];
+      const bool eq = (uo - lo) <= T(1e-9);
+      const T d_up = absv(uo) < fin ? nan_max(uo - ax, T(0)) : big;
+      const T d_lo = absv(lo) < fin ? nan_max(ax - lo, T(0)) : big;
+      const T dist = eq ? T(0) : (y > T(0) ? d_up : d_lo);
+      const T a = absv(y) / dscale, c = dist / pscale;
+      vsv = nan_max(vsv, (a < c || a != a) ? a : c);   // min, NaN kept
+    }
+    const T svn = warp_max(vsv);
+    if (lead_lane()) {
+      pr[b] = mx[2] / pscale;
+      du[b] = mx[6] / dscale;
+      sv[b] = svn;
+    }
+  }
+}
+
+#ifdef __CUDACC__
+
+template <typename T>
+__global__ void __launch_bounds__(POLISH_THREADS, sizeof(T) == 4 ? 6 : 3)
+    polish_compact_kernel(
+    const T* __restrict__ hd, const T* __restrict__ hblk,
+    const T* __restrict__ hid, const T* __restrict__ hiblk,
+    const T* __restrict__ Sinv, const T* __restrict__ A,
+    const T* __restrict__ da, const T* __restrict__ g, const T* __restrict__ bb,
+    const T* __restrict__ l, const T* __restrict__ u,
+    T* __restrict__ xo, T* __restrict__ yo, T* __restrict__ zo,
+    T* __restrict__ pr, T* __restrict__ du, T* __restrict__ sv,
+    int n, int m, int k, int start, int refine, T reg) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  polish_compact_block<T>(hd, hblk, hid, hiblk, Sinv, A, da, g, bb, l, u, xo, yo, zo,
+                          pr, du, sv, blockIdx.x, n, m, k, start, refine, reg,
+                          reinterpret_cast<T*>(smem_raw));
+}
+
+template <typename T>
+int launch_polish(const void* hd, const void* hblk, const void* hid,
+                  const void* hiblk, const void* Sinv, const void* A,
+                  const void* da, const void* g, const void* bb, const void* l,
+                  const void* u, void* xo, void* yo, void* zo, void* pr,
+                  void* du, void* sv, int B, int n, int m, int k, int start,
+                  int refine, T reg, void* stream) {
+  const size_t smem = sizeof(T) * polish_compact_words(n, m, k);
+  if (int err = allow_shared_memory<polish_compact_kernel<T>>(smem)) return err;
+  polish_compact_kernel<T><<<B, POLISH_THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)hd, (const T*)hblk, (const T*)hid, (const T*)hiblk,
+      (const T*)Sinv, (const T*)A, (const T*)da, (const T*)g, (const T*)bb,
+      (const T*)l, (const T*)u, (T*)xo, (T*)yo, (T*)zo, (T*)pr, (T*)du, (T*)sv,
+      n, m, k, start, refine, reg);
+  return (int)cudaGetLastError();
+}
+
+#else  // plain C++: one thread runs the blocks one after the other
+
+template <typename T>
+int launch_polish(const void* hd, const void* hblk, const void* hid,
+                  const void* hiblk, const void* Sinv, const void* A,
+                  const void* da, const void* g, const void* bb, const void* l,
+                  const void* u, void* xo, void* yo, void* zo, void* pr,
+                  void* du, void* sv, int B, int n, int m, int k, int start,
+                  int refine, T reg, void*) {
+  T* smem = new T[polish_compact_words(n, m, k)];
+  for (int b = 0; b < B; ++b)
+    polish_compact_block<T>(
+        (const T*)hd, (const T*)hblk, (const T*)hid, (const T*)hiblk,
+        (const T*)Sinv, (const T*)A, (const T*)da, (const T*)g, (const T*)bb,
+        (const T*)l, (const T*)u, (T*)xo, (T*)yo, (T*)zo, (T*)pr, (T*)du, (T*)sv,
+        b, n, m, k, start, refine, reg, smem);
+  delete[] smem;
+  return 0;
+}
+
+#endif
+
+}  // namespace qwbc
+
+extern "C" {
+
+int qwbc_polish_f32(const void* hd, const void* hblk, const void* hid,
+                    const void* hiblk, const void* Sinv, const void* A,
+                    const void* da, const void* g, const void* bb, const void* l,
+                    const void* u, void* xo, void* yo, void* zo, void* pr,
+                    void* du, void* sv, int B, int n, int m, int k, int start,
+                    int refine, float reg, void* stream) {
+  return qwbc::launch_polish<float>(hd, hblk, hid, hiblk, Sinv, A, da, g, bb, l, u,
+                                    xo, yo, zo, pr, du, sv, B, n, m, k, start,
+                                    refine, reg, stream);
+}
+
+int qwbc_polish_f64(const void* hd, const void* hblk, const void* hid,
+                    const void* hiblk, const void* Sinv, const void* A,
+                    const void* da, const void* g, const void* bb, const void* l,
+                    const void* u, void* xo, void* yo, void* zo, void* pr,
+                    void* du, void* sv, int B, int n, int m, int k, int start,
+                    int refine, double reg, void* stream) {
+  return qwbc::launch_polish<double>(hd, hblk, hid, hiblk, Sinv, A, da, g, bb, l, u,
+                                     xo, yo, zo, pr, du, sv, B, n, m, k, start,
+                                     refine, reg, stream);
+}
+
+// shared memory of one block, in words (the wrapper's limit check)
+size_t qwbc_polish_compact_words(int n, int m, int k) {
+  return qwbc::polish_compact_words(n, m, k);
+}
+
+}  // extern "C"

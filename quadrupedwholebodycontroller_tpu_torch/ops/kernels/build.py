@@ -19,11 +19,12 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("prepare.cu", "admm_zy.cu", "admm.cu", "polish.cu", "setup.cu", "ns_warm.cu")
+SOURCES = ("prepare.cu", "admm_zy.cu", "admm.cu", "polish.cu", "polish_compact.cu",
+           "setup.cu", "ns_warm.cu")
 HEADERS = ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh")
 # sources written with the stage macros of common.cuh alone, which also
 # compile as plain C++ (see `host_lib`)
-HOST_SOURCES = ("setup.cu", "ns_warm.cu")
+HOST_SOURCES = ("setup.cu", "ns_warm.cu", "polish_compact.cu")
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -114,9 +115,7 @@ def _declare(lib) -> None:
         # pointers, B, n, m, iters, epilogue, sigma, alpha, 1 - alpha, stream
         fn.argtypes = [_PTR] * 20 + [i, i, i, i, i, real, real, real, _PTR]
         fn.restype = i
-        fn = getattr(lib, f"qwbc_polish_{suffix}")
-        fn.argtypes = [_PTR] * 17 + [i, i, i, i, i, i, real, _PTR]
-        fn.restype = i
+        _declare_polish(lib, suffix, real)
         fn = getattr(lib, f"qwbc_polish_dense_{suffix}")
         fn.argtypes = [_PTR] * 15 + [i, i, i, i, real, _PTR]
         fn.restype = i
@@ -133,6 +132,17 @@ def _declare_setup(lib, suffix, real) -> None:
     # of ref_is_new, exact, fused, sweeps, rho0, rho_eq, stream
     fn.argtypes = [ctypes.POINTER(_PTR), i, i, i, i, i, i, i, i, real, real, _PTR]
     fn.restype = i
+
+
+def _declare_polish(lib, suffix, real) -> None:
+    i = ctypes.c_int
+    fn = getattr(lib, f"qwbc_polish_{suffix}")
+    # pointers, B, n, m, k, start, refine, reg, stream
+    fn.argtypes = [_PTR] * 17 + [i, i, i, i, i, i, real, _PTR]
+    fn.restype = i
+    # the compact kernel's shared memory in words, from n, m, k
+    lib.qwbc_polish_compact_words.argtypes = [i, i, i]
+    lib.qwbc_polish_compact_words.restype = ctypes.c_size_t
 
 
 def _declare_ns_warm(lib, suffix) -> None:
@@ -182,6 +192,7 @@ def host_lib():
         for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
             _declare_setup(loaded, suffix, real)
             _declare_ns_warm(loaded, suffix)
+            _declare_polish(loaded, suffix, real)
         _host_lib = loaded
     return _host_lib
 

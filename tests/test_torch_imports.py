@@ -52,7 +52,8 @@ def test_port_has_the_expected_modules():
                  "sim/scenario.py", "sim/rollout.py"):
         assert want in rel, want
     for src in ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh", "prepare.cu",
-                "admm_zy.cu", "admm.cu", "polish.cu", "setup.cu", "ns_warm.cu"):
+                "admm_zy.cu", "admm.cu", "polish.cu", "polish_compact.cu", "setup.cu",
+                "ns_warm.cu"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
     assert os.path.exists(os.path.join(PORT, "models", "data", "anymal_d.json"))
 
