@@ -10,7 +10,10 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  It
      card, at the main path's shapes (B = 4096, n = 42, m = 70) on inputs
      from a recorded walking step, each output to its own tolerance, in
      float32 and float64, plus a ragged B = 37 (the setup kernel's exact
-     mode, K3x, also on a step far from any contact switch),
+     mode, K3x, also on a step far from any contact switch); K1, K2, K3 and
+     K3x must repeat a launch bit for bit; K1 and K2 are also timed at the
+     main path's sub-batches, K1 without iterations (its load and epilogue),
+     and K1's row says which instantiation ran and what ptxas made of it,
   3. drives the paths of the batched 400 Hz control cycle
      (`control.wbc.wbc_step_batched`, B = 4096, float32) over the recorded
      walk, each with the launch counters zeroed before and read after: the
@@ -690,7 +693,19 @@ def check_kernels():
                 for b in (128, 64, 32):
                     ab = sub_batch(args, b)
                     rows[K2][f"ms_B{b}"] = time_ms(lambda: fn(*ab, **kw), host_ahead=True)
-            if name in (K3, K3X, K2):
+            if name == K1:
+                # the rescue's sub-batch; the load and the epilogue alone; the
+                # instantiation the shape takes and what ptxas made of it
+                ab = sub_batch(args, 128)
+                rows[K1]["ms_B128"] = time_ms(lambda: fn(*ab, **kw), host_ahead=True)
+                kw0 = dict(kw, iters=0)
+                rows[K1]["ms_iters0"] = time_ms(lambda: fn(*args, **kw0), host_ahead=True)
+                before = dict(admm_zy.VARIANT_LAUNCHES)
+                fn(*args, **kw)
+                rows[K1]["variant"] = [v for v, c in admm_zy.VARIANT_LAUNCHES.items()
+                                       if c != before[v]]
+                rows[K1]["ptxas"] = build.ptxas_report("admm_zy.cu")
+            if name in (K3, K3X, K2, K1):
                 # the same launch again: a race between threads would rarely
                 # repeat bit for bit
                 again = fn(*args, **kw)
@@ -801,6 +816,11 @@ def check_run(tag, launches, plain, kkts, flagged, runs, never, n_steps, quality
 def step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs):
     steady = sorted(ms[1:])
     med = statistics.median(steady)
+    # K1's launches by instantiation: the WBC's shape keeps the matrices in
+    # registers
+    k1_variants = dict(admm_zy.VARIANT_LAUNCHES)
+    if sum(k1_variants.values()) != launches[K1] or k1_variants["shared_memory"]:
+        raise AssertionError(f"K1 by instantiation {k1_variants}, {launches[K1]} launches")
     return {
         "steps": n_steps, "batch": BATCH, "dtype": "float32",
         "ms_per_step_median": med,
@@ -810,6 +830,7 @@ def step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs):
         "max_kkt": max(kkts), "flagged_max": max(flagged),
         "flagged_scenario_steps": n_flag,
         "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "k1_launches_by_variant": k1_variants,
         "host_syncs_per_step": syncs / n_steps,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
     }

@@ -18,10 +18,11 @@
 // about it: K^-1 and A are read from device memory once into shared memory
 // and every iteration's three matvecs (A^T t, K^-1 ., A .) run from there,
 // three barriers an iteration; x lives in the registers of the column
-// threads, z and y in those of the row threads.  The epilogue is the one
-// of the constraint-space kernel (admm_epilogue.cuh): it loads the scaled H
-// over K^-1's slot.  What still limits the kernel is shared-memory
-// bandwidth (one matrix word per multiply-add), as in admm_zy.cu.
+// threads, z and y in those of the row threads.  The epilogue
+// (admm_epilogue.cuh) loads the scaled H over K^-1's slot.  What still
+// limits the kernel is shared-memory bandwidth (one matrix word per
+// multiply-add); the constraint-space kernel (admm_zy.cu) keeps its
+// matrices in registers instead.
 #include "admm_epilogue.cuh"
 
 namespace qwbc {

@@ -1,6 +1,6 @@
-// The residual epilogue of the two ADMM kernels (admm_zy.cu, admm.cu): the
-// unscaled relative KKT residuals and sign violation of the block's scaled
-// iterate, on the block's resident scaled A.
+// The residual epilogue of the x-space ADMM kernel (admm.cu): the unscaled
+// relative KKT residuals and sign violation of the block's scaled iterate,
+// on the block's resident scaled A.
 #pragma once
 #include "common.cuh"
 

@@ -1,18 +1,31 @@
 // Helpers shared by the kernels: one thread block per scenario, the
-// scenario's matrices in (dynamic) shared memory with an odd row stride,
-// vectors in shared memory, one thread per output row.
+// scenario's matrices in (dynamic) shared memory with an odd row stride or
+// in registers, vectors in shared memory, one thread per output row.
 //
-// Code written with QWBC_FOR / QWBC_SYNC alone (every value that crosses a
-// barrier lives in shared memory, none in a register) also compiles as plain
-// C++: a block is then one thread that runs each stage's items in turn, in
-// rising or falling order (qwbc_host_reverse), so a test without a GPU can
-// check the arithmetic and that no item of a stage reads what another item
-// of the same stage writes.  It cannot show a missing barrier.
+// Code written with the stage macros alone also compiles as plain C++: a
+// block is then one thread that runs each stage's items in turn, in rising
+// or falling order (qwbc_host_reverse), so a test without a GPU can check
+// the arithmetic and that no item of a stage reads what another item of the
+// same stage writes.  It cannot show a missing barrier.  Two forms:
+//   * QWBC_FOR / QWBC_SYNC: every value that crosses a barrier lives in
+//     shared memory, none in a register;
+//   * QWBC_STAGE(state, count, f): values that cross barriers in registers
+//     live in one state struct per thread; a stage is a callable
+//     f(struct&, tid) that reads and writes its own struct and shared
+//     memory.  On the device the thread calls it once on its struct (state
+//     is a one-element array), then __syncthreads(); on the host `state`
+//     holds `count` structs, one per emulated thread, and the stage runs
+//     over them in rising or falling tid order.
 #pragma once
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define QWBC_FOR(i, n) for (int i = threadIdx.x; i < (n); i += blockDim.x)
 #define QWBC_SYNC() __syncthreads()
+#define QWBC_STAGE(state, count, ...)                                       \
+  do {                                                                       \
+    (__VA_ARGS__)((state)[0], (int)threadIdx.x);                             \
+    __syncthreads();                                                         \
+  } while (0)
 #else
 #include <math.h>
 #include <cmath>
@@ -26,6 +39,14 @@ extern "C" int qwbc_host_reverse;
   for (int i##_k = 0, i##_n = (n), i = (qwbc_host_reverse ? i##_n - 1 : 0);  \
        i##_k < i##_n; ++i##_k, i += (qwbc_host_reverse ? -1 : 1))
 #define QWBC_SYNC() ((void)0)
+#define QWBC_STAGE(state, count, ...)                                       \
+  do {                                                                       \
+    const int qs_n = (count);                                                \
+    for (int qs_k = 0; qs_k < qs_n; ++qs_k) {                                \
+      const int qs_t = qwbc_host_reverse ? qs_n - 1 - qs_k : qs_k;           \
+      (__VA_ARGS__)((state)[qs_t], qs_t);                                    \
+    }                                                                        \
+  } while (0)
 #endif
 
 namespace qwbc {
@@ -33,6 +54,23 @@ namespace qwbc {
 // Odd row stride: thread i reading M[i*stride + j] for fixed j then hits 32
 // different banks across a warp (42- and 70-word rows would 2-way conflict).
 __host__ __device__ inline int row_stride(int cols) { return cols | 1; }
+
+// a vector region's words, padded to eight (16-byte loads may read past len)
+__host__ __device__ inline int pad8(int words) { return (words + 7) & ~7; }
+
+// a * b + c rounded once, written out where the rounding must not depend on
+// the compiler: nvcc's default contraction turns `acc += a * b` into it but
+// may fuse either product of `a * b + c * d`, and the host build
+// (-ffp-contract=off) fuses nothing
+template <typename T>
+__device__ __forceinline__ T fmadd(T a, T b, T c) {
+#ifdef __CUDACC__
+  if constexpr (sizeof(T) == 4) return __fmaf_rn(a, b, c);
+  else return __fma_rn(a, b, c);
+#else
+  return std::fma(a, b, c);
+#endif
+}
 
 #ifdef __CUDACC__
 // Raises a kernel's dynamic shared-memory limit above the 48 KB default,
@@ -134,6 +172,108 @@ __device__ __forceinline__ T warp_max(T v) {
     v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
 #endif
   return v;
+}
+
+template <typename T>
+__device__ __forceinline__ void async_load_vector(T* dst, const T* __restrict__ src,
+                                                  int len) {
+  QWBC_FOR(i, len) async_copy(dst + i, src + i);
+}
+
+// a row-major (rows, cols) matrix into rows of stride ld, element by element
+template <typename T>
+__device__ __forceinline__ void async_load_matrix(T* dst, const T* __restrict__ src,
+                                                  int rows, int cols, int ld) {
+  if (rows * cols == 0) return;
+#ifdef __CUDACC__
+  const int step = blockDim.x, dr = step / cols, dc = step - dr * cols;
+  int r = threadIdx.x / cols, c = threadIdx.x - r * cols;
+  for (int idx = threadIdx.x; idx < rows * cols; idx += step) {
+    async_copy(dst + r * ld + c, src + idx);
+    r += dr;
+    c += dc;
+    if (c >= cols) { c -= cols; ++r; }
+  }
+#else
+  QWBC_FOR(idx, rows * cols) {
+    const int r = idx / cols, c = idx - r * cols;
+    async_copy(dst + r * ld + c, src + idx);
+  }
+#endif
+}
+
+// The certificate of an unscaled primal/dual pair (relative KKT residuals,
+// OSQP normalization, and the sign violation), as kkt_epilogue computes it,
+// with its maxima reduced per warp in one pass.  Each thread fills the
+// CERT_MAXIMA values of its item (zeros where it has none): a constraint
+// row its finite bounds, |Ax| and |Ax - clip(Ax)| (cert_row_terms), a
+// variable |Hx|, |A^T y|, |g| and |Hx + g + A^T y| (cert_var_terms); every
+// lane of every warp then calls cert_warp_maxima, which folds the warp's
+// maxima into red[q * nw + warp] (zeroed before; nw the stride, at least the
+// warps of the block).  After a barrier the first warp alone calls
+// cert_finish: the scales, the sign violation over the rows from ax, y
+// (unscaled), lo and uo in shared memory, and pr[b], du[b], sv[b].  The
+// maxima are order-free, so the result is kkt_epilogue's bit for bit.
+constexpr int CERT_MAXIMA = 7;
+
+template <typename T>
+__device__ __forceinline__ void cert_row_terms(T lo, T uo, T ax, T* v) {
+  const T fin = T(1e19);
+  v[0] = nan_max(absv(lo) < fin ? absv(lo) : T(0), absv(uo) < fin ? absv(uo) : T(0));
+  v[1] = absv(ax);
+  v[2] = absv(ax - clip(ax, lo, uo));
+}
+
+template <typename T>
+__device__ __forceinline__ void cert_var_terms(T hx, T aty, T gu, T* v) {
+  v[3] = absv(hx);
+  v[4] = absv(aty);
+  v[5] = absv(gu);
+  v[6] = absv(hx + gu + aty);
+}
+
+template <typename T>
+__device__ __forceinline__ void cert_warp_maxima(const T* v, T* red, int nw) {
+#pragma unroll
+  for (int q = 0; q < CERT_MAXIMA; ++q) {
+    const T w = warp_max(v[q]);
+    if (lead_lane_of_warp())
+      red[q * nw + warp_index()] = nan_max(red[q * nw + warp_index()], w);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void cert_finish(const T* red, int nw, const T* axs,
+                                            const T* ys, const T* ls, const T* us, int m,
+                                            T* __restrict__ pr, T* __restrict__ du,
+                                            T* __restrict__ sv, int b) {
+  if (!lead_warp()) return;
+  const T big = T(1e20), fin = T(1e19);
+  T mx[CERT_MAXIMA] = {};
+  QWBC_LANES(i, warps_per_block()) {
+#pragma unroll
+    for (int q = 0; q < CERT_MAXIMA; ++q) mx[q] = nan_max(mx[q], red[q * nw + i]);
+  }
+#pragma unroll
+  for (int q = 0; q < CERT_MAXIMA; ++q) mx[q] = warp_max(mx[q]);   // side by side
+  const T pscale = nan_max(T(1), nan_max(mx[1], mx[0]));
+  const T dscale = nan_max(T(1), nan_max(mx[3], nan_max(mx[4], mx[5])));
+  T vsv = T(0);
+  QWBC_LANES(r, m) {
+    const T lo = ls[r], uo = us[r], ax = axs[r], y = ys[r];
+    const bool eq = (uo - lo) <= T(1e-9);
+    const T d_up = absv(uo) < fin ? nan_max(uo - ax, T(0)) : big;
+    const T d_lo = absv(lo) < fin ? nan_max(ax - lo, T(0)) : big;
+    const T dist = eq ? T(0) : (y > T(0) ? d_up : d_lo);
+    const T a = absv(y) / dscale, c = dist / pscale;
+    vsv = nan_max(vsv, (a < c || a != a) ? a : c);   // min, NaN kept
+  }
+  const T svn = warp_max(vsv);
+  if (lead_lane()) {
+    pr[b] = mx[2] / pscale;
+    du[b] = mx[6] / dscale;
+    sv[b] = svn;
+  }
 }
 
 // Cooperative load of a dense row-major (rows, cols) matrix into shared

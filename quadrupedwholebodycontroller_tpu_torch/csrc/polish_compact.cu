@@ -60,9 +60,6 @@ namespace qwbc {
 // next, so no warp runs both kinds: 134 of 160 threads, one round
 constexpr int POLISH_THREADS = 160;
 constexpr int NW = POLISH_THREADS / 32;   // warps of a block
-constexpr int NMAX = 7;  // block-wide maxima of the certificate before the sign violation
-
-__host__ __device__ inline int pad8(int words) { return (words + 7) & ~7; }
 
 // the matrices, then the vectors, each vector region padded to eight words
 __host__ __device__ inline int matrix_words(int n, int m, int k) {
@@ -71,7 +68,7 @@ __host__ __device__ inline int matrix_words(int n, int m, int k) {
 
 __host__ __device__ inline size_t polish_compact_words(int n, int m, int k) {
   return (size_t)matrix_words(n, m, k) + 7 * (size_t)pad8(n) + 10 * (size_t)pad8(m) +
-         NMAX * NW;
+         CERT_MAXIMA * NW;
 }
 
 // Eight terms of a dot product into registers; CHECK: the batch may pass
@@ -154,34 +151,6 @@ struct Compact {
 };
 
 template <typename T>
-__device__ __forceinline__ void async_load_vector(T* dst, const T* __restrict__ src,
-                                                  int len) {
-  QWBC_FOR(i, len) async_copy(dst + i, src + i);
-}
-
-// a row-major (rows, cols) matrix into rows of stride ld, element by element
-template <typename T>
-__device__ __forceinline__ void async_load_matrix(T* dst, const T* __restrict__ src,
-                                                  int rows, int cols, int ld) {
-  if (rows * cols == 0) return;
-#ifdef __CUDACC__
-  const int step = blockDim.x, dr = step / cols, dc = step - dr * cols;
-  int r = threadIdx.x / cols, c = threadIdx.x - r * cols;
-  for (int idx = threadIdx.x; idx < rows * cols; idx += step) {
-    async_copy(dst + r * ld + c, src + idx);
-    r += dr;
-    c += dc;
-    if (c >= cols) { c -= cols; ++r; }
-  }
-#else
-  QWBC_FOR(idx, rows * cols) {
-    const int r = idx / cols, c = idx - r * cols;
-    async_copy(dst + r * ld + c, src + idx);
-  }
-#endif
-}
-
-template <typename T>
 __device__ void polish_compact_block(
     const T* __restrict__ hd, const T* __restrict__ hblk,
     const T* __restrict__ hid, const T* __restrict__ hiblk,
@@ -201,8 +170,8 @@ __device__ void polish_compact_block(
   T* hids = hds + n8;         // n        H^-1 diagonal
   T* gs = hids + n8;          // n        g
   T* xs = gs + n8;            // n        x
-  T* r1 = xs + n8;            // n        r1; H x in the tail
-  T* tn = r1 + n8;            // n        scratch over the variables; A^T y in the tail
+  T* r1 = xs + n8;            // n        r1
+  T* tn = r1 + n8;            // n        scratch over the variables
   T* btw = tn + n8;           // n        B^T y = A^T (da * y)
   T* das = btw + n8;          // m        da
   T* dab = das + m8;          // m        b, then da * b
@@ -214,7 +183,7 @@ __device__ void polish_compact_block(
   T* r2 = ws + m8;            // m        r2, then dy
   T* tm = r2 + m8;            // m        Sinv's right-hand side; A x in the tail
   T* wn = tm + m8;            // m        da * (y + dy)
-  T* red = wn + m8;           // NMAX*NW  per-warp maxima of the certificate
+  T* red = wn + m8;           // CERT_MAXIMA*NW  per-warp maxima of the certificate
   const Compact<T> H{hds, Hb, sk, start, k}, Hinv{hids, Hib, sk, start, k};
   const int nc = (n + 31) & ~31;   // items of the variables in the mixed stages
   const size_t bn = (size_t)b * n, bm = (size_t)b * m;
@@ -242,7 +211,7 @@ __device__ void polish_compact_block(
   QWBC_SYNC();
 
   // y = Sinv (-(da*b + B Hinv g)),  x = Hinv (-g - B^T y)
-  QWBC_FOR(it, n + m + NMAX * NW) {
+  QWBC_FOR(it, n + m + CERT_MAXIMA * NW) {
     if (it < n) {
       tn[it] = Hinv(it, gs);
     } else if (it < n + m) {
@@ -314,70 +283,26 @@ __device__ void polish_compact_block(
     QWBC_SYNC();
   }
 
-  // z = clip(A x), the outputs, and the maxima of the relative KKT
-  // residuals (OSQP normalization), as kkt_epilogue takes them: finite
-  // bounds, |Ax|, |Ax - clip(Ax)|, |Hx|, |A^T y|, |g|, |Hx + g + A^T y|;
-  // each warp reduces its items' values (every lane takes part, with zeros
-  // past the last item)
-  const T big = T(1e20), fin = T(1e19);
+  // z = clip(A x), the outputs, and the certificate (common.cuh): each
+  // warp reduces its items' values (every lane takes part, with zeros past
+  // the last item), then the first warp finishes it
   QWBC_FOR_UNIFORM(it, nc + m) {
-    T v[NMAX] = {};
+    T v[CERT_MAXIMA] = {};
     if (it < n) {
-      const T hx = H(it, xs), aty = a_col(it, ys), gu = gs[it];   // A^T y, not active-masked
       xo[bn + it] = xs[it];
-      r1[it] = hx;
-      tn[it] = aty;
-      v[3] = absv(hx);
-      v[4] = absv(aty);
-      v[5] = absv(gu);
-      v[6] = absv(hx + gu + aty);
+      cert_var_terms(H(it, xs), a_col(it, ys), gs[it], v);   // A^T y, not active-masked
     } else if (it >= nc && it < nc + m) {
       const int r = it - nc;
       const T lo = ls[r], uo = us[r], ax = a_row(r, xs);
       tm[r] = ax;
       zo[bm + r] = clip(ax, lo, uo);
       yo[bm + r] = ys[r];
-      v[0] = nan_max(absv(lo) < fin ? absv(lo) : T(0), absv(uo) < fin ? absv(uo) : T(0));
-      v[1] = absv(ax);
-      v[2] = absv(ax - clip(ax, lo, uo));
+      cert_row_terms(lo, uo, ax, v);
     }
-#pragma unroll
-    for (int q = 0; q < NMAX; ++q) {
-      const T w = warp_max(v[q]);
-      if (lead_lane_of_warp())
-        red[q * NW + warp_index()] = nan_max(red[q * NW + warp_index()], w);
-    }
+    cert_warp_maxima(v, red, NW);
   }
   QWBC_SYNC();
-
-  // the scales, then the sign violation over the rows, by one warp
-  if (lead_warp()) {
-    T mx[NMAX];
-#pragma unroll
-    for (int q = 0; q < NMAX; ++q) {
-      T w = T(0);
-      QWBC_LANES(i, warps_per_block()) w = nan_max(w, red[q * NW + i]);
-      mx[q] = warp_max(w);
-    }
-    const T pscale = nan_max(T(1), nan_max(mx[1], mx[0]));
-    const T dscale = nan_max(T(1), nan_max(mx[3], nan_max(mx[4], mx[5])));
-    T vsv = T(0);
-    QWBC_LANES(r, m) {
-      const T lo = ls[r], uo = us[r], ax = tm[r], y = ys[r];
-      const bool eq = (uo - lo) <= T(1e-9);
-      const T d_up = absv(uo) < fin ? nan_max(uo - ax, T(0)) : big;
-      const T d_lo = absv(lo) < fin ? nan_max(ax - lo, T(0)) : big;
-      const T dist = eq ? T(0) : (y > T(0) ? d_up : d_lo);
-      const T a = absv(y) / dscale, c = dist / pscale;
-      vsv = nan_max(vsv, (a < c || a != a) ? a : c);   // min, NaN kept
-    }
-    const T svn = warp_max(vsv);
-    if (lead_lane()) {
-      pr[b] = mx[2] / pscale;
-      du[b] = mx[6] / dscale;
-      sv[b] = svn;
-    }
-  }
+  cert_finish(red, NW, tm, ys, ls, us, m, pr, du, sv, b);
 }
 
 #ifdef __CUDACC__

@@ -26,6 +26,8 @@ def reset_counts() -> None:
         for name in mod.LAUNCHES:
             mod.LAUNCHES[name] = 0
             mod.PLAIN_CALLS[name] = 0
+    for name in admm_zy.VARIANT_LAUNCHES:
+        admm_zy.VARIANT_LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:

@@ -14,8 +14,12 @@ primal / dual residuals (OSQP normalization) and the sign violation sv.
 
 On a CUDA tensor the wrapper launches `csrc/admm_zy.cu` (one launch for
 loop and epilogue); on a CPU tensor it takes `admm_zy_iterations_res_plain`.
+`admm_zy_iterations_res_host` runs the same source compiled as plain C++
+(tests only).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,6 +27,10 @@ from quadrupedwholebodycontroller_tpu_torch.ops.kernels import build
 
 LAUNCHES = {"admm_zy_iterations_res": 0}
 PLAIN_CALLS = {"admm_zy_iterations_res": 0}
+# launches of each instantiation of csrc/admm_zy.cu (see the wrapper)
+VARIANT_LAUNCHES = {"registers": 0, "shared_memory": 0}
+
+THREADS_MAX = 1024
 
 _BIG = 1e20   # one-sided bounds are clipped to +-1e20; finite is |.| < 1e19
 
@@ -97,44 +105,93 @@ def admm_zy_iterations_res_plain(Kinv, A, g, l, u, rho, x0, z0, y0,
     return x, z, y, pr, du, sv
 
 
+def _kernel_args(Kinv, A, g, l, u, rho, x0, z0, y0, Hs, l_orig, u_orig, d, e,
+                 lib, device_type):
+    """Check the kernel's inputs (device and host builds, `lib` the loaded
+    library); returns (dtype suffix, pointer tensors in the launcher's
+    order, the instantiation's name)."""
+    B, m, n = A.shape
+    # the kernel clips the bounds to +-1e20 itself (no launch here); a
+    # strided view of them is copied
+    l, u, lo, uo = (t.contiguous() for t in (l, u, l_orig, u_orig))
+    ins = (Kinv, A, g, l, u, rho, x0, z0, y0, Hs, lo, uo, d, e)
+    suffix = build.check_inputs(A, dict(zip(
+        ("Kinv", "A", "g", "l", "u", "rho", "x0", "z0", "y0", "Hs", "l_orig",
+         "u_orig", "d", "e"), zip(ins, (
+            (B, n, n), (B, m, n), (B, n), (B, m), (B, m), (B, m), (B, n), (B, m),
+            (B, m), (B, n, n), (B, m), (B, m), (B, n), (B, m))))), device_type)
+    threads = lib.qwbc_admm_zy_threads(n, m)
+    smem = lib.qwbc_admm_zy_words(n, m, A.element_size()) * A.element_size()
+    if threads > THREADS_MAX or smem > build.SMEM_BYTES:
+        raise ValueError(
+            f"admm_zy kernel: n={n}, m={m} in {A.dtype} needs {threads} threads "
+            f"(at most {THREADS_MAX}) and {smem} bytes of shared memory (at most "
+            f"{build.SMEM_BYTES})")
+    variant = ("registers" if lib.qwbc_admm_zy_in_registers(n, m, A.element_size())
+               else "shared_memory")
+    return suffix, ins, variant
+
+
+def _scalars(alpha, iters):
+    alpha = float(alpha)
+    w0 = (1.0 - alpha) ** int(iters)
+    return int(iters), alpha, 1.0 - alpha, w0, 1.0 - w0
+
+
 def admm_zy_iterations_res(Kinv, A, g, l, u, rho, x0, z0, y0,
                            Hs, l_orig, u_orig, d, e,
                            *, iters: int, alpha: float):
     """Kinv (B,n,n) = K^-1 in SCALED space; A/g/l/u/rho scaled; Hs the
     scaled H; l_orig/u_orig the unscaled bounds; d/e the Ruiz scalings.
-    Returns (x, z, y, pr, du, sv), x/z/y in scaled space."""
+    Returns (x, z, y, pr, du, sv), x/z/y in scaled space.
+
+    The kernel has two instantiations, chosen by shape and dtype alone: in
+    float32 up to n = 44 variables and m = 72 rows (the WBC's 42 and 70)
+    every thread keeps its matrix words in registers ("registers"); above
+    that, and in float64, the same stages read them from shared memory
+    ("shared_memory").  Both sum in the same order.  A shape neither takes
+    (more than 1024 threads, i.e. m + 2n > 1024, or more shared memory than
+    a block has) raises ValueError."""
     if A.device.type == "cpu":
         return admm_zy_iterations_res_plain(
             Kinv, A, g, l, u, rho, x0, z0, y0, Hs, l_orig, u_orig, d, e,
             iters=iters, alpha=alpha,
         )
     B, m, n = A.shape
-    l = torch.clamp(l, -_BIG, _BIG)
-    u = torch.clamp(u, -_BIG, _BIG)
-    lo = torch.clamp(l_orig, -_BIG, _BIG)
-    uo = torch.clamp(u_orig, -_BIG, _BIG)
-    suffix = build.check_inputs(A, {
-        "Kinv": (Kinv, (B, n, n)), "A": (A, (B, m, n)), "g": (g, (B, n)),
-        "l": (l, (B, m)), "u": (u, (B, m)), "rho": (rho, (B, m)),
-        "x0": (x0, (B, n)), "z0": (z0, (B, m)), "y0": (y0, (B, m)),
-        "Hs": (Hs, (B, n, n)), "l_orig": (lo, (B, m)), "u_orig": (uo, (B, m)),
-        "d": (d, (B, n)), "e": (e, (B, m)),
-    })
-    if max(n, m) > 1024:
-        raise ValueError(f"admm_zy kernel takes n, m <= 1024, got {n}, {m}")
+    suffix, ins, variant = _kernel_args(Kinv, A, g, l, u, rho, x0, z0, y0, Hs,
+                                        l_orig, u_orig, d, e, build.lib(), "cuda")
     new = lambda *shape: torch.empty(shape, dtype=A.dtype, device=A.device)
     outs = (new(B, n), new(B, m), new(B, m), new(B), new(B), new(B))
     if B == 0:
         return outs
-    alpha = float(alpha)
-    w0 = (1.0 - alpha) ** int(iters)
     build.launch(
         "admm_zy", suffix,
-        *(t.data_ptr() for t in (Kinv, A, g, l, u, rho, x0, z0, y0,
-                                 Hs, lo, uo, d, e)),
-        *(t.data_ptr() for t in outs),
-        B, n, m, int(iters), alpha, 1.0 - alpha, w0, 1.0 - w0,
+        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+        B, n, m, *_scalars(alpha, iters),
         torch.cuda.current_stream(A.device).cuda_stream,
     )
     LAUNCHES["admm_zy_iterations_res"] += 1
+    VARIANT_LAUNCHES[variant] += 1
+    return outs
+
+
+def admm_zy_iterations_res_host(Kinv, A, g, l, u, rho, x0, z0, y0,
+                                Hs, l_orig, u_orig, d, e,
+                                *, iters: int, alpha: float, reverse: bool = False):
+    """`csrc/admm_zy.cu` compiled as plain C++ and run on CPU tensors, one
+    emulated thread per block (`build.host_lib`), in the instantiation the
+    shape selects; `reverse` runs every stage's threads in falling order.
+    Needs a C++ compiler; counts as no launch."""
+    B, m, n = A.shape
+    lib = build.host_lib()
+    suffix, ins, _ = _kernel_args(Kinv, A, g, l, u, rho, x0, z0, y0, Hs,
+                                  l_orig, u_orig, d, e, lib, "cpu")
+    new = lambda *shape: torch.empty(shape, dtype=A.dtype)
+    outs = (new(B, n), new(B, m), new(B, m), new(B), new(B), new(B))
+    ctypes.c_int.in_dll(lib, "qwbc_host_reverse").value = int(reverse)
+    err = getattr(lib, f"qwbc_admm_zy_{suffix}")(
+        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+        B, n, m, *_scalars(alpha, iters), None)
+    if err != 0:
+        raise RuntimeError(f"host build of the admm_zy kernel failed ({err})")
     return outs

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,12 +25,14 @@ SOURCES = ("prepare.cu", "admm_zy.cu", "admm.cu", "polish.cu", "polish_compact.c
 HEADERS = ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh")
 # sources written with the stage macros of common.cuh alone, which also
 # compile as plain C++ (see `host_lib`)
-HOST_SOURCES = ("setup.cu", "ns_warm.cu", "polish_compact.cu")
+HOST_SOURCES = ("setup.cu", "ns_warm.cu", "polish_compact.cu", "admm_zy.cu")
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+SMEM_BYTES = 232_448   # shared memory one block may use on an H100
 
 _lib = None
 _host_lib = None
@@ -99,6 +102,27 @@ def _build(lib_path: str) -> None:
     build_seconds = time.perf_counter() - t0
 
 
+def ptxas_report(source: str) -> list:
+    """What ptxas printed for the kernels of one source in the build this
+    process ran (empty if it loaded an earlier build): one dict a kernel,
+    {"kernel", "registers", "stack_bytes", "spill_store_bytes",
+    "spill_load_bytes"}; the kernel named as mangled, trimmed of the
+    namespace and the argument list."""
+    section = build_log.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0] \
+        if f"== {source}\n" in build_log else ""
+    out = []
+    for ln in section.splitlines():
+        if m := re.search(r"Compiling entry function '(?:_ZN4qwbc\d+)?(\w+?)(?:Ev|EEv)", ln):
+            out.append({"kernel": m.group(1)})
+        elif out and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                     r"(\d+) bytes spill loads", ln)):
+            out[-1].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                           spill_load_bytes=int(m.group(3)))
+        elif out and (m := re.search(r"Used (\d+) registers", ln)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 _PTR = ctypes.c_void_p
 
 
@@ -108,9 +132,7 @@ def _declare(lib) -> None:
         fn = getattr(lib, f"qwbc_prepare_{suffix}")
         fn.argtypes = [_PTR] * 19 + [i, i, i, i, real, real, _PTR]
         fn.restype = i
-        fn = getattr(lib, f"qwbc_admm_zy_{suffix}")
-        fn.argtypes = [_PTR] * 20 + [i, i, i, i, real, real, real, real, _PTR]
-        fn.restype = i
+        _declare_admm_zy(lib, suffix, real)
         fn = getattr(lib, f"qwbc_admm_{suffix}")
         # pointers, B, n, m, iters, epilogue, sigma, alpha, 1 - alpha, stream
         fn.argtypes = [_PTR] * 20 + [i, i, i, i, i, real, real, real, _PTR]
@@ -123,6 +145,21 @@ def _declare(lib) -> None:
         _declare_ns_warm(lib, suffix)
     lib.qwbc_error_string.argtypes = [i]
     lib.qwbc_error_string.restype = ctypes.c_char_p
+
+
+def _declare_admm_zy(lib, suffix, real) -> None:
+    i = ctypes.c_int
+    fn = getattr(lib, f"qwbc_admm_zy_{suffix}")
+    # pointers, B, n, m, iters, alpha, 1 - alpha, w0, 1 - w0, stream
+    fn.argtypes = [_PTR] * 20 + [i, i, i, i, real, real, real, real, _PTR]
+    fn.restype = i
+    # the instantiation a shape and element size take, the threads, the
+    # shared memory in words
+    for name, args, res in (("in_registers", 3, i), ("threads", 2, i),
+                            ("words", 3, ctypes.c_size_t)):
+        fn = getattr(lib, f"qwbc_admm_zy_{name}")
+        fn.argtypes = [i] * args
+        fn.restype = res
 
 
 def _declare_setup(lib, suffix, real) -> None:
@@ -193,6 +230,7 @@ def host_lib():
             _declare_setup(loaded, suffix, real)
             _declare_ns_warm(loaded, suffix)
             _declare_polish(loaded, suffix, real)
+            _declare_admm_zy(loaded, suffix, real)
         _host_lib = loaded
     return _host_lib
 

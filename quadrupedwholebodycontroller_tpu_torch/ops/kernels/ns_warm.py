@@ -27,8 +27,6 @@ from quadrupedwholebodycontroller_tpu_torch.ops.kernels import build
 LAUNCHES = {"ns_inverse_warm": 0}
 PLAIN_CALLS = {"ns_inverse_warm": 0}
 
-SMEM_BYTES = 232_448   # shared memory one block may use on an H100
-
 
 def _smem_bytes(n: int, itemsize: int) -> int:
     """The kernel's shared memory (csrc/ns_warm.cu ns_warm_words)."""
@@ -65,11 +63,11 @@ def _check(A, warm, device_type):
     B, n, _ = A.shape
     suffix = build.check_inputs(A, {"A": (A, (B, n, n)), "warm": (warm, (B, n, n))},
                                 device_type)
-    if _smem_bytes(n, A.element_size()) > SMEM_BYTES:
+    if _smem_bytes(n, A.element_size()) > build.SMEM_BYTES:
         raise ValueError(
             f"ns_inverse_warm kernel holds four n*n matrices in shared memory: "
             f"n={n} in {A.dtype} needs {_smem_bytes(n, A.element_size())} bytes, "
-            f"more than {SMEM_BYTES}")
+            f"more than {build.SMEM_BYTES}")
     return suffix
 
 

@@ -38,8 +38,6 @@ from quadrupedwholebodycontroller_tpu_torch.ops.kernels.admm_zy import (
 LAUNCHES = {"polish_solve_compact": 0, "polish_solve_dense": 0}
 PLAIN_CALLS = {"polish_solve_compact": 0, "polish_solve_dense": 0}
 
-SMEM_BYTES = 232_448   # shared memory one block may use on an H100
-
 
 def blockdiag_apply(compact, v):
     """(diag + blk) @ v for a compact block-diagonal matrix (batched)."""
@@ -111,11 +109,11 @@ def _compact_args(H, Hinv, Sinv, A, da, g, b, l, u, lib, device_type):
         raise ValueError(f"polish kernel takes a block inside n; got "
                          f"n={n}, start={start}, k={k}")
     smem = lib.qwbc_polish_compact_words(n, m, k) * A.element_size()
-    if smem > SMEM_BYTES:
+    if smem > build.SMEM_BYTES:
         raise ValueError(
             f"compact polish kernel holds Sinv, A, the H blocks and its vectors "
             f"in shared memory: n={n}, m={m}, k={k} in {A.dtype} needs {smem} "
-            f"bytes, more than {SMEM_BYTES}")
+            f"bytes, more than {build.SMEM_BYTES}")
     return suffix, (hd, hblk, hid, hiblk, Sinv, A, da, g, b, l, u), (B, n, m, k, int(start))
 
 

@@ -73,14 +73,22 @@ def test_prepare_and_setup_share_one_prepare_tail():
 
 
 def test_admm_kernels_share_one_epilogue():
-    """The residual epilogue of the two ADMM kernels is one device function
-    in admm_epilogue.cuh; neither source carries a copy."""
+    """The residual epilogue is written once in each of its two forms: the
+    block-wide one of admm_epilogue.cuh (kkt_epilogue), which the x-space
+    ADMM kernel calls, and the per-warp certificate helpers of common.cuh,
+    which the constraint-space ADMM kernel and the compact polish call;
+    no kernel source carries a copy."""
     read = lambda f: open(os.path.join(PORT, "csrc", f)).read()
     assert "void admm_epilogue(" in read("admm_epilogue.cuh")
-    for src in ("admm_zy.cu", "admm.cu"):
+    text = read("admm.cu")
+    assert '#include "admm_epilogue.cuh"' in text and "admm_epilogue(" in text
+    assert "kkt_epilogue(" not in text and "Hs + bn * n" not in text
+    assert "void cert_finish(" in read("common.cuh")
+    for src in ("admm_zy.cu", "polish_compact.cu"):
         text = read(src)
-        assert '#include "admm_epilogue.cuh"' in text and "admm_epilogue(" in text
-        assert "kkt_epilogue(" not in text and "Hs + bn * n" not in text
+        assert "cert_warp_maxima(" in text and "cert_finish(" in text
+        assert "kkt_epilogue(" not in text and "block_max(" not in text
+        assert "1e-9" not in text and "1e19" not in text   # the certificate's tests
 
 
 @pytest.mark.parametrize("name", KERNEL_MODULES)
