@@ -13,7 +13,8 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  It
      mode, K3x, also on a step far from any contact switch); K1, K2, K3 and
      K3x must repeat a launch bit for bit; K1 and K2 are also timed at the
      main path's sub-batches, K1 without iterations (its load and epilogue),
-     and K1's row says which instantiation ran and what ptxas made of it,
+     and K1's row says which instantiation ran and what ptxas made of it;
+     the setup kernel's section probes (`stop_after`) time its sections,
   3. drives the paths of the batched 400 Hz control cycle
      (`control.wbc.wbc_step_batched`, B = 4096, float32) over the recorded
      walk, each with the launch counters zeroed before and read after: the
@@ -462,6 +463,22 @@ def setup_bytes(args, got, exact=False) -> int:
     return sum(size(t) for t in read) + sum(size(t) for t in written) + 2 * got[0].shape[0]
 
 
+def setup_section_times(args, reps=20, exact=False):
+    """Device ms of the setup kernel (float32) cut after each section of
+    `setup_k.SECTIONS` (the stop_after probes), then whole without and with
+    the prepare tail ("full_plain", "prepare"): {section: [cumulative ms,
+    marginal ms]}, each marginal the difference from the section before."""
+    out, prev = {}, 0.0
+    qpp = QPSolverParams()
+    for sec in (*setup_k.SECTIONS, "full_plain", "prepare"):
+        kw = dict(exact_mode=exact, qp_params=qpp if sec == "prepare" else None,
+                  stop_after=sec if sec in setup_k.SECTIONS else None)
+        ms = time_ms(lambda: setup_k.setup_batched(*args, **kw), reps=reps, host_ahead=True)
+        out[sec] = [ms, ms - prev]
+        prev = ms
+    return out
+
+
 def sub_batch(args, b):
     """The first b scenarios of a kernel's arguments, contiguous."""
     take = lambda t: t[:b].contiguous() if isinstance(t, torch.Tensor) else t
@@ -683,10 +700,12 @@ def check_kernels():
             if name == K8:
                 ns_warm_extra(rows[K8], case, fn, plain, args, kw, got)
             if name in (K3, K3X):
-                # the variant without the prepare tail
+                # the variant without the prepare tail, and its bound (bytes)
                 kw0 = dict(qp_params=None)
                 rows[name]["ms_plain_variant"] = time_ms(lambda: fn(*args, **kw0),
                                                          host_ahead=True)
+                rows[name]["bound_ms_plain_variant"] = setup_bytes(
+                    args, fn(*args, **kw0), exact=name == K3X) / HBM_BYTES_PER_S * 1e3
             if name == K2:
                 # the sub-batches of the main path: the rescue, the drop
                 # round, the rescue's round 2
@@ -713,6 +732,10 @@ def check_kernels():
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise AssertionError(f"{name}: two launches on the same inputs differ")
                 rows[name]["repeat_launch_bit_identical"] = True
+        # K4 is the first kernel timed, after the card idled through the
+        # build: timed once more here, after the other eight
+        _, _, fn, _, args, kw = next(c for c in cases if c[0] == K4 and c[1] == "main")
+        rows[K4]["ms_again"] = time_ms(lambda: fn(*args, **kw), host_ahead=True)
         # the same cases in float64 (the scalar type is a template
         # parameter) at the full batch, and both types at a ragged batch
         for batch, dtype in ((BATCH, torch.float64), (37, torch.float32),
@@ -1339,6 +1362,12 @@ def main():
                     if "registers" in ln or "error" in ln.lower()]})
 
     rows, stats = check_kernels()
+    with torch.no_grad():
+        sec_args = setup_args(BATCH, torch.float32, np.random.default_rng(SEED))
+        emit({"setup_sections": {k: v[1] for k, v in setup_section_times(sec_args).items()},
+              "unit": "marginal device ms, K3, float32, B = 4096, step 60",
+              "ptxas_sections": build.ptxas_report("setup_sections")})
+        del sec_args
     offsets = replay.make_offsets(BATCH, torch.float32, np.random.default_rng(SEED + 1), DEV)
     launches, summaries, versus = main_paths(offsets)
     rec = record_qps(offsets)

@@ -30,6 +30,7 @@
 #include <math.h>
 #include <cmath>
 #include <cstddef>
+#include <limits>
 #define __host__
 #define __device__
 #define __global__
@@ -149,6 +150,40 @@ inline int warps_per_block() { return 1; }
 #define QWBC_FOR_UNIFORM(i, n) QWBC_FOR(i, n)
 #endif  // __CUDACC__
 
+// index of the lowest set bit of a non-zero mask: `for (m = mask; m; m &= m - 1)`
+// with j = lowest_bit(m) visits the set bits in rising order
+__device__ __forceinline__ int lowest_bit(unsigned m) {
+#ifdef __CUDACC__
+  return __ffs((int)m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+// zero `words` values from a 16-byte aligned p, 16 bytes a store
+template <typename T>
+__device__ __forceinline__ void zero_words(T* p, int words) {
+#ifdef __CUDACC__
+  constexpr int per = 16 / sizeof(T);
+  const int vec = words / per;
+  QWBC_FOR(i, vec) reinterpret_cast<float4*>(p)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  QWBC_FOR(i, words - vec * per) p[vec * per + i] = T(0);
+#else
+  QWBC_FOR(i, words) p[i] = T(0);
+#endif
+}
+
+// a quiet NaN of T
+template <typename T>
+__device__ __forceinline__ T nan_value() {
+#ifdef __CUDACC__
+  if constexpr (sizeof(T) == 4) return __int_as_float(0x7fffffff);
+  else return __longlong_as_double(0x7fffffffffffffffLL);
+#else
+  return std::numeric_limits<T>::quiet_NaN();
+#endif
+}
+
 // max that propagates NaN (fmax would swallow it and certify a bad iterate)
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) {
@@ -170,6 +205,15 @@ __device__ __forceinline__ T warp_max(T v) {
 #ifdef __CUDACC__
   for (int o = 16; o > 0; o >>= 1)
     v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+#endif
+  return v;
+}
+
+// sum over the lanes of a warp (QWBC_LANES stages), in the butterfly's order
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#ifdef __CUDACC__
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
 #endif
   return v;
 }

@@ -39,7 +39,7 @@ __global__ void prepare_kernel(
   load_matrix(As, A + bm * n, m, n, sn);
   __syncthreads();
   // the body is shared with the fused setup kernel (prepare_tail.cuh)
-  prepare_tail(Hs, As, sn, d0, e0, d1, e1, g + bn, l + bm, u + bm,
+  prepare_tail(DenseH<T>{Hs, sn}, As, sn, d0, e0, d1, e1, g + bn, l + bm, u + bm,
                wx + bn, wz + bm, wy + bm, false,
                sH + bn * n, sA + bm * n, sg + bn, sl + bm, su + bm, rho + bm,
                wxs + bn, wzs + bm, wys + bm, dout + bn, eout + bm,

@@ -28,13 +28,21 @@
 // about 5,200 (plain) or 10,700 (fused: the scaled H and A again) against a
 // few tens of kflop (exact mode: about twice the kinematic and mass-block
 // work, the same bytes).  The design keeps every intermediate in shared memory,
-// assembles A and H there, runs the Ruiz sweeps on them in place and writes
-// each output once, coalesced.  The body is a chain of small dependent
-// stages (3-, 6-, 12- and 18-wide contractions over the tree): each stage
-// spreads its independent items (bodies of one tree level, matrix entries,
-// rows) over the block's threads and ends in a barrier; nothing that crosses
-// a barrier is held in a register, so the same source also runs as plain C++
+// assembles A and H there (H as its diagonal and its dense block), runs the
+// Ruiz sweeps on them in place and writes each output once, coalesced.  The
+// body is a chain of small dependent stages (3-, 6-, 12- and 18-wide
+// contractions over the tree), so what sets the time is latency: each stage
+// puts its independent items (bodies of one tree level, matrix entries,
+// rows) in one list, the heavy ones first, spread over the block's threads,
+// and ends in a barrier; a loop over the bodies a joint moves visits only
+// those; values dead after the mass blocks share their words with what is
+// formed later, so 9 blocks fit an SM in float32.  Nothing that crosses a
+// barrier is held in a register, so the same source also runs as plain C++
 // (common.cuh) where the arithmetic is checked without a GPU.
+//
+// Every output is the previous kernel's bit for bit: each sum keeps
+// its order, and where nvcc would contract the same text differently in the
+// new code, the old kernel's choice is written out with fmadd.
 //
 // Rows 0-17 of the QP are equalities because the SAME value is stored to l
 // and u; each is computed once and stored twice, never recomputed per side
@@ -45,7 +53,10 @@
 namespace qwbc {
 
 constexpr int NB = 13, NJ = 12, NL = 4, NV = 18, NQ = 42, MQ = 70;
-constexpr int SN = NQ + 1;            // odd row stride of A and H in shared memory
+constexpr int SN = NQ + 1;            // odd row stride of A in shared memory
+constexpr int HB0 = NV, HNB = 3 * NL; // H: a diagonal and the contact forces' block
+template <typename T>
+using WbcH = BlockDiagH<T, HB0, HNB>;
 
 // ---- the packed model + controller constants (ops/kernels/setup.py) ----
 // per joint: M0, M1, M2 (joint rotation R_j (I + s K + (1-c) K^2) split by
@@ -81,8 +92,8 @@ enum {
   O_A, O_G, O_L, O_U, O_H, O_HC, O_COM, O_POSE, O_FPOS, O_MCJJ, O_JSTJ,
   O_T, O_JST, O_JSW, O_TDINV, O_INTEG, O_PREVC,
   O_SH, O_SA, O_SG, O_SL, O_SU, O_RHO, O_WXS, O_WZS, O_WYS, O_D, O_E,
-  // output bytes (bool)
-  O_SWFLAG,
+  // output bytes (bool): the switch flag, deriv_valid (always true)
+  O_SWFLAG, O_DVALID,
   N_PTRS
 };
 
@@ -90,29 +101,45 @@ struct SetupPtrs {
   void* p[N_PTRS];
 };
 
+// A block's shared memory.  Values of the kinematics and the dynamics that
+// are dead once the mass blocks are formed share their words with what is
+// formed from X on (and the Ruiz scalings of the tail): 21.4 KB in float32,
+// 42.6 KB in float64.
 template <typename T>
 struct SetupShared {
-  T A[MQ][SN], H[NQ][SN];            // the QP under assembly
+  T A[MQ][SN];                       // the QP under assembly: A, then H
+  T Hd[NQ], Hb[HNB][WbcH<T>::LDB];   //   as its diagonal and its block
   T g[NQ], l[MQ], u[MQ];
-  T d[2][NQ], e[2][MQ];              // Ruiz scalings, double-buffered
   T u18[NV];                         // [base twist; qd]
   T sq[NJ], cq[NJ], rpy[3];
   T rpose[6], rvel[6], racc[6], spos[12], svel[12], sacc[12], integ[6];
   T con[NL];                         // contacts in force this cycle
   T gate;                            // 0 where the finite differences are void
   int dropd;                         // contact switch: drop the warm duals
-  T R[NB][9], p[NB][3], cw[NB][3], r[NB][3], axw[NJ][3];
-  T w[NB][3], al[NB][3], ao[NB][3];  // velocity-product recursion
-  T Iw[NB][9], F[NB][3], Nb[NB][3];
-  T jq[NB][NJ][3], Iwa[NB][NJ][3];   // zero where joint j does not move body b
+  int tp[TP_SIZE];                   // the topology table
+  unsigned desc[NJ];                 // per joint: the bodies it moves (bit bb)
+  T R[NB][9], p[NB][3], axw[NJ][3];
   T com[3], dcom[3], cvel[6];
-  T hcor[NV], mr[3], rot[9];
+  T hcor[NV], tdu[6];
   T Mbj[6][NJ], Mjj[NJ][NJ], Mb[6][6], Mbi[6][6];
-  T X0[6][NJ], Xr[6][NJ], X[6][NJ], MbX[6][NJ];
-  T Mcb[6][6], Ttop[6][NV], Td[6][NV], adjD[6][NV];
-  T tdu[6], hMT[NV], hc[NV];
-  T Jcf[NL][3][NV];                  // centroidal foot Jacobians, unmasked
-  T fpos[12], fvel[12], wdes[6];
+  T X[6][NJ];
+  union {
+    struct {                         // dead after the mass blocks
+      T cw[NB][3], r[NB][3];
+      T w[NB][3], al[NB][3], ao[NB][3];   // velocity-product recursion
+      T Iw[NB][9], F[NB][3], Nb[NB][3];
+      T jq[NB][NJ][3], Iwa[NB][NJ][3];    // zero where joint j does not move body b
+      T mr[3], rot[9];
+    };
+    struct {                         // first written after the mass blocks
+      T X0[6][NJ], Xr[6][NJ], MbX[6][NJ];
+      T Mcb[6][6], Ttop[6][NV], Td[6][NV], adjD[6][NV];
+      T hMT[NV], hc[NV];
+      T Jcf[NL][3][NV];              // centroidal foot Jacobians, unmasked
+      T fpos[12], fvel[12], wdes[6];
+      T d[2][NQ], e[2][MQ];          // Ruiz scalings, double-buffered
+    };
+  };
 };
 
 // exact mode only: the time derivatives along the state flow of the primal
@@ -127,6 +154,67 @@ struct SetupTangents {
   T tdi[6][NV];                      // the fresh d(T^-1)/dt, top rows
   T Jf[NL][3][NV];                   // centroidal foot Jacobians, unmasked
 };
+
+// ---- the section probes (template parameter STOP; profiling only): the
+// kernel stops after the named section of the JAX kernel's body
+// (ops/pallas/setup_kernel.py, _make_kernel's `stop_after` cuts), at the
+// stage boundary nearest that cut, and writes the sum of the section's live
+// values (_checksum there) into com, three copies; every other output stays
+// unwritten.  Sections in order; STOP_NONE is the whole kernel.
+enum { STOP_NONE, STOP_INPUTS, STOP_FK, STOP_JAC, STOP_RECURSION, STOP_MASS,
+       STOP_CENTROIDAL, STOP_FOOT, STOP_FD, N_STOPS };
+
+// n values of a section: contiguous words, or rows of `cols` at stride ld
+template <typename T>
+struct Part {
+  const T* p;
+  int n, cols, ld;
+  __device__ T at(int i) const { return cols ? p[(i / cols) * ld + i % cols] : p[i]; }
+};
+
+template <typename T>
+__device__ __forceinline__ Part<T> part(const T* p, int n, int cols = 0, int ld = 0) {
+  return Part<T>{p, n, cols, ld};
+}
+
+// n values formed on the fly, f(i)
+template <typename F>
+struct Formed {
+  int n;
+  F f;
+  __device__ auto at(int i) const { return f(i); }
+};
+
+template <typename F>
+__device__ __forceinline__ Formed<F> formed(int n, F f) {
+  return Formed<F>{n, f};
+}
+
+// the first warp sums the parts (after a barrier), each lane every 32nd
+// value of each part, then across the lanes; lane 0 writes com.  The host
+// build sums in the same order, so both give the same bits.
+template <typename T, typename... P>
+__device__ void write_checksum(T* com, const P&... parts) {
+#ifdef __CUDACC__
+  if (!lead_warp()) return;
+  T acc = T(0);
+  auto add = [&](const auto& pt) { QWBC_LANES(i, pt.n) acc += pt.at(i); };
+  (add(parts), ...);
+  acc = warp_sum(acc);
+  if (lead_lane()) com[0] = com[1] = com[2] = acc;
+#else
+  T lane[32] = {}, next[32];
+  auto add = [&](const auto& pt) {
+    for (int i = 0; i < pt.n; ++i) lane[i % 32] += pt.at(i);
+  };
+  (add(parts), ...);
+  for (int o = 16; o > 0; o >>= 1) {
+    for (int l = 0; l < 32; ++l) next[l] = lane[l] + lane[l ^ o];
+    for (int l = 0; l < 32; ++l) lane[l] = next[l];
+  }
+  com[0] = com[1] = com[2] = lane[0];
+#endif
+}
 
 template <typename T>
 __device__ __forceinline__ void cross3(const T* a, const T* b, T* o) {
@@ -214,8 +302,8 @@ __device__ __forceinline__ T tdinv_entry(const SetupShared<T>& S, int p, int c) 
   return -(S.adjD[p][c] - acc);
 }
 
-// G: the tangents (EXACT only; null otherwise)
-template <typename T, bool EXACT>
+// G: the tangents (EXACT only; null otherwise); STOP: a section probe
+template <typename T, bool EXACT, int STOP>
 __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
                             int fused, int sweeps, T rho0, T rho_eq,
                             SetupShared<T>& S, SetupTangents<T>* G) {
@@ -223,65 +311,84 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
   auto out = [&](int k) { return static_cast<T*>(a.p[k]); };
   auto flag = [&](int k) { return static_cast<const unsigned char*>(a.p[k]); };
   const T* mc = in(I_MC);
-  const int* tp = static_cast<const int*>(a.p[I_TOPO]);
-  const int* parent = tp + TP_PARENT;
-  const int* depth = tp + TP_DEPTH;
-  const int* anc = tp + TP_ANC;
-  const int* foot_body = tp + TP_FOOT;
-  const int max_depth = tp[TP_MAXDEPTH];
+  const int* tp_in = static_cast<const int*>(a.p[I_TOPO]);
+  // the topology from shared memory, after the first stage
+  const int* parent = S.tp + TP_PARENT;
+  const int* depth = S.tp + TP_DEPTH;
+  const int* anc = S.tp + TP_ANC;
+  const int* foot_body = S.tp + TP_FOOT;
   const T* sc = mc + MC_SCAL;
   const size_t sb = (size_t)b;
   auto cj = [&](int j) { return mc + MC_JOINT + j * CJ_SIZE; };
   auto cb = [&](int bb) { return mc + MC_BODY + bb * CB_SIZE; };
   auto moves = [&](int bb, int j) { return ((anc[bb] >> j) & 1) != 0; };
+  constexpr bool full = STOP == STOP_NONE;   // a probe writes com alone
+  T* const com_out = out(O_COM) + sb * 3;
 
-  // ---- stage: load, sin/cos, roll-pitch-yaw, contact bookkeeping ----
-  QWBC_FOR(i, MQ * SN) (&S.A[0][0])[i] = T(0);
-  QWBC_FOR(i, NQ * SN) (&S.H[0][0])[i] = T(0);
-  QWBC_FOR(i, 9) S.R[0][i] = in(I_R0)[sb * 9 + i];
-  QWBC_FOR(i, 3) {
-    S.p[0][i] = in(I_P0)[sb * 3 + i];
-    S.w[0][i] = in(I_BV)[sb * 6 + 3 + i];
-    S.al[0][i] = T(0);
-    S.ao[0][i] = T(0);
-  }
-  QWBC_FOR(i, 6) {
-    S.u18[i] = in(I_BV)[sb * 6 + i];
-    S.rpose[i] = in(I_RPOSE)[sb * 6 + i];
-    S.rvel[i] = in(I_RVEL)[sb * 6 + i];
-    S.racc[i] = in(I_RACC)[sb * 6 + i];
-    S.integ[i] = in(I_INTEG)[sb * 6 + i];
-  }
-  QWBC_FOR(i, NJ) {
-    const T q = in(I_Q)[sb * NJ + i];
-    S.sq[i] = sin(q);
-    S.cq[i] = cos(q);
-    S.u18[6 + i] = in(I_QD)[sb * NJ + i];
-    S.spos[i] = in(I_SPOS)[sb * 12 + i];
-    S.svel[i] = in(I_SVEL)[sb * 12 + i];
-    S.sacc[i] = in(I_SACC)[sb * 12 + i];
-  }
-  QWBC_FOR(one, 1) {
-    // the reference-update bookkeeping: a new reference publishes its
-    // contacts and raises the switch flag if they changed; between
-    // references both are held
-    const bool is_new = flag(I_REFNEW)[sb * refnew_stride] != 0;
-    bool changed = false;
-    for (int f = 0; f < NL; ++f)
-      changed = changed || (in(I_RCON)[sb * NL + f] != in(I_PREVC)[sb * NL + f]);
-    const bool sw = is_new ? changed : (flag(I_SWFLAG)[sb] != 0);
-    for (int f = 0; f < NL; ++f) {
-      const T c = is_new ? in(I_RCON)[sb * NL + f] : in(I_PREVC)[sb * NL + f];
-      S.con[f] = c;
-      out(O_PREVC)[sb * NL + f] = c;
+  // ---- stage: load, sin/cos, roll-pitch-yaw, contact bookkeeping, the
+  // topology and the joints' body masks; every item on a thread of its own ----
+  zero_words(&S.A[0][0], MQ * SN);
+  constexpr int IT_RPY = 1, IT_JOINT = IT_RPY + 3, IT_R0 = IT_JOINT + NJ,
+                IT_BASE = IT_R0 + 9, IT_REF = IT_BASE + 3, IT_TOPO = IT_REF + 6,
+                IT_DESC = IT_TOPO + TP_SIZE, IT_LOAD = IT_DESC + NJ;
+  QWBC_FOR(it, IT_LOAD) {
+    if (it == 0) {
+      // the reference-update bookkeeping: a new reference publishes its
+      // contacts and raises the switch flag if they changed; between
+      // references both are held
+      const bool is_new = flag(I_REFNEW)[sb * refnew_stride] != 0;
+      bool changed = false;
+      for (int f = 0; f < NL; ++f)
+        changed = changed || (in(I_RCON)[sb * NL + f] != in(I_PREVC)[sb * NL + f]);
+      const bool sw = is_new ? changed : (flag(I_SWFLAG)[sb] != 0);
+      for (int f = 0; f < NL; ++f) {
+        const T c = is_new ? in(I_RCON)[sb * NL + f] : in(I_PREVC)[sb * NL + f];
+        S.con[f] = c;
+        if (full) out(O_PREVC)[sb * NL + f] = c;
+      }
+      if (full) {
+        static_cast<unsigned char*>(a.p[O_SWFLAG])[sb] = sw ? 1 : 0;
+        static_cast<unsigned char*>(a.p[O_DVALID])[sb] = 1;
+      }
+      S.gate = (sw || flag(I_DERIVV)[sb] == 0) ? T(0) : T(1);
+      S.dropd = sw ? 1 : 0;
+    } else if (it < IT_JOINT) {
+      const T* R = in(I_R0) + sb * 9;
+      if (it == IT_RPY) S.rpy[0] = atan2(R[7], R[8]);
+      else if (it == IT_RPY + 1) S.rpy[1] = atan2(-R[6], sqrt(R[7] * R[7] + R[8] * R[8]));
+      else S.rpy[2] = atan2(R[3], R[0]);
+    } else if (it < IT_R0) {
+      const int i = it - IT_JOINT;
+      const T q = in(I_Q)[sb * NJ + i];
+      S.sq[i] = sin(q);
+      S.cq[i] = cos(q);
+      S.u18[6 + i] = in(I_QD)[sb * NJ + i];
+      S.spos[i] = in(I_SPOS)[sb * 12 + i];
+      S.svel[i] = in(I_SVEL)[sb * 12 + i];
+      S.sacc[i] = in(I_SACC)[sb * 12 + i];
+    } else if (it < IT_BASE) {
+      S.R[0][it - IT_R0] = in(I_R0)[sb * 9 + it - IT_R0];
+    } else if (it < IT_REF) {
+      const int i = it - IT_BASE;
+      S.p[0][i] = in(I_P0)[sb * 3 + i];
+      S.w[0][i] = in(I_BV)[sb * 6 + 3 + i];
+      S.al[0][i] = T(0);
+      S.ao[0][i] = T(0);
+    } else if (it < IT_TOPO) {
+      const int i = it - IT_REF;
+      S.u18[i] = in(I_BV)[sb * 6 + i];
+      S.rpose[i] = in(I_RPOSE)[sb * 6 + i];
+      S.rvel[i] = in(I_RVEL)[sb * 6 + i];
+      S.racc[i] = in(I_RACC)[sb * 6 + i];
+      S.integ[i] = in(I_INTEG)[sb * 6 + i];
+    } else if (it < IT_DESC) {
+      S.tp[it - IT_TOPO] = tp_in[it - IT_TOPO];
+    } else {
+      const int j = it - IT_DESC;
+      unsigned m = 0;
+      for (int bb = 1; bb < NB; ++bb) m |= (unsigned)((tp_in[TP_ANC + bb] >> j) & 1) << bb;
+      S.desc[j] = m;
     }
-    static_cast<unsigned char*>(a.p[O_SWFLAG])[sb] = sw ? 1 : 0;
-    S.gate = (sw || flag(I_DERIVV)[sb] == 0) ? T(0) : T(1);
-    S.dropd = sw ? 1 : 0;
-    const T* R = in(I_R0) + sb * 9;
-    S.rpy[0] = atan2(R[7], R[8]);
-    S.rpy[1] = atan2(-R[6], sqrt(R[7] * R[7] + R[8] * R[8]));
-    S.rpy[2] = atan2(R[3], R[0]);
   }
   if constexpr (EXACT) {   // the base's tangents: skew(omega) R0 and v
     QWBC_FOR(i, 9) {
@@ -295,10 +402,16 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     QWBC_FOR(i, 3) G->p[0][i] = in(I_BV)[sb * 6 + i];
   }
   QWBC_SYNC();
+  if constexpr (STOP == STOP_INPUTS) {   // R0, p0, [v; qd], sin, cos, contacts, switch
+    const T swf = S.dropd ? T(1) : T(0);
+    return write_checksum(com_out, part(S.R[0], 9), part(S.p[0], 3), part(S.u18, NV),
+                                   part(S.sq, NJ), part(S.cq, NJ), part(S.con, NL),
+                                   part(&swf, 1));
+  }
 
   // ---- stages: forward kinematics and the velocity-product recursion,
   // one tree level at a time (the bodies of a level are independent) ----
-  for (int lev = 1; lev <= max_depth; ++lev) {
+  for (int lev = 1; lev <= S.tp[TP_MAXDEPTH]; ++lev) {
     QWBC_FOR(bb, NB) {
       if (depth[bb] != lev) continue;
       const int j = bb - 1, pb = parent[bb];
@@ -382,6 +495,10 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     }
   }
   QWBC_SYNC();
+  if constexpr (STOP == STOP_FK) {   // R (bodies 1..), p, body centres of mass, axes
+    return write_checksum(com_out, part(S.R[1], (NB - 1) * 9), part(S.p[0], NB * 3),
+                                   part(S.cw[0], NB * 3), part(S.axw[0], NJ * 3));
+  }
 
   // ---- stage: Jacobian parts, centre of mass ----
   QWBC_FOR(i, NB * NJ) {
@@ -399,9 +516,11 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     for (int bb = 1; bb < NB; ++bb) acc += S.cw[bb][k] * cb(bb)[CB_WM];
     S.com[k] = acc;
     S.dcom[k] = acc - S.p[0][k];
-    out(O_COM)[sb * 3 + k] = acc;
-    out(O_POSE)[sb * 6 + k] = acc;
-    out(O_POSE)[sb * 6 + 3 + k] = S.rpy[k];
+    if (full) {
+      out(O_COM)[sb * 3 + k] = acc;
+      out(O_POSE)[sb * 6 + k] = acc;
+      out(O_POSE)[sb * 6 + 3 + k] = S.rpy[k];
+    }
   }
   if constexpr (EXACT) {
     QWBC_FOR(k, 3) {
@@ -413,102 +532,123 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
   }
   QWBC_SYNC();
 
-  // ---- stage: centre-of-mass velocity, Iw axw, body forces / moments ----
-  QWBC_FOR(k, 3) {
-    const T* om = S.u18 + 3;
-    T acc = T(0);
-    for (int bb = 0; bb < NB; ++bb) {
-      T vb = S.u18[k] + cross_k(om, S.r[bb], k);
-      for (int j = 0; j < NJ; ++j)
-        if (moves(bb, j)) vb += S.u18[6 + j] * S.jq[bb][j][k];
-      acc += vb * cb(bb)[CB_WM];
-    }
-    S.cvel[k] = acc;
-    S.cvel[3 + k] = om[k];
-  }
-  QWBC_FOR(i, NB * NJ) {
-    const int bb = i / NJ, j = i % NJ;
-    const bool mv = moves(bb, j);
-    for (int k = 0; k < 3; ++k)
-      S.Iwa[bb][j][k] = mv ? mv3_row(S.Iw[bb], k, S.axw[j]) : T(0);
-  }
-  QWBC_FOR(bb, NB) {
-    T dcb[3], t1[3], t2[3], t3[3], Iw_w[3];
-    for (int k = 0; k < 3; ++k) dcb[k] = S.cw[bb][k] - S.p[bb][k];
-    cross3(S.al[bb], dcb, t1);
-    cross3(S.w[bb], dcb, t2);
-    cross3(S.w[bb], t2, t3);
-    for (int k = 0; k < 3; ++k) Iw_w[k] = mv3_row(S.Iw[bb], k, S.w[bb]);
-    cross3(S.w[bb], Iw_w, t2);
-    const T mass = cb(bb)[CB_MASS];
-    for (int k = 0; k < 3; ++k) {
-      S.F[bb][k] = (S.ao[bb][k] + t1[k] + t3[k]) * mass;
-      S.Nb[bb][k] = mv3_row(S.Iw[bb], k, S.al[bb]) + t2[k];
+  // ---- stage: centre-of-mass velocity, body forces / moments, Iw axw;
+  // the heavy items first, each on a thread of its own ----
+  QWBC_FOR(it, 3 + NB + NB * NJ) {
+    int i = it;
+    if (i < 3) {
+      const int k = i;
+      const T* om = S.u18 + 3;
+      T acc = T(0);
+      for (int bb = 0; bb < NB; ++bb) {
+        T vb = S.u18[k] + cross_k(om, S.r[bb], k);
+        for (unsigned m = (unsigned)anc[bb]; m; m &= m - 1) {   // the joints moving bb
+          const int j = lowest_bit(m);
+          vb += S.u18[6 + j] * S.jq[bb][j][k];
+        }
+        acc += vb * cb(bb)[CB_WM];
+      }
+      S.cvel[k] = acc;
+      S.cvel[3 + k] = om[k];
+    } else if ((i -= 3) < NB) {
+      const int bb = i;
+      T dcb[3], t1[3], t2[3], t3[3], Iw_w[3];
+      for (int k = 0; k < 3; ++k) dcb[k] = S.cw[bb][k] - S.p[bb][k];
+      cross3(S.al[bb], dcb, t1);
+      cross3(S.w[bb], dcb, t2);
+      cross3(S.w[bb], t2, t3);
+      for (int k = 0; k < 3; ++k) Iw_w[k] = mv3_row(S.Iw[bb], k, S.w[bb]);
+      cross3(S.w[bb], Iw_w, t2);
+      const T mass = cb(bb)[CB_MASS];
+      for (int k = 0; k < 3; ++k) {
+        S.F[bb][k] = (S.ao[bb][k] + t1[k] + t3[k]) * mass;
+        S.Nb[bb][k] = mv3_row(S.Iw[bb], k, S.al[bb]) + t2[k];
+      }
+    } else {
+      i -= NB;
+      const int bb = i / NJ, j = i % NJ;
+      const bool mv = moves(bb, j);
+      for (int k = 0; k < 3; ++k)
+        S.Iwa[bb][j][k] = mv ? mv3_row(S.Iw[bb], k, S.axw[j]) : T(0);
     }
   }
   QWBC_SYNC();
+  if constexpr (STOP == STOP_JAC) {   // com velocity (6), com - p0, the Jacobian parts
+    return write_checksum(com_out, part(S.cvel, 6), part(S.dcom, 3),
+                                   part(S.jq[0][0], NB * NJ * 3));
+  }
 
-  // ---- stage: Coriolis bias, mass-matrix blocks, carried d(T^-1)/dt u ----
-  QWBC_FOR(i, NV) {
-    T acc = T(0);
-    if (i < 3) {
-      for (int bb = 0; bb < NB; ++bb) acc += S.F[bb][i];
-    } else if (i < 6) {
-      for (int bb = 0; bb < NB; ++bb)
-        acc += cross_k(S.r[bb], S.F[bb], i - 3) + S.Nb[bb][i - 3];
-    } else {
-      const int j = i - 6;
-      for (int bb = 1; bb < NB; ++bb)
-        if (moves(bb, j))
+  // ---- stage: Coriolis bias, mass-matrix blocks, carried d(T^-1)/dt u
+  // (exact mode: then the tangents of sum m r, the rotational block and
+  // Mbj); the heavy items first.  A loop over the bodies a joint moves
+  // visits them in rising order, as the loop over all bodies that skips the
+  // rest ----
+  constexpr int N_TDU = EXACT ? 0 : 6;
+  QWBC_FOR(it, N_TDU + 9 + NV + 3 + 6 * NJ + NJ * NJ) {
+    int i = it;
+    if (i < N_TDU) {
+      if constexpr (!EXACT) {  // the bias reads the CARRIED d(T^-1)/dt (one cycle stale)
+        const T* row = in(I_TDINV) + sb * NV * NV + i * NV;
+        T acc = T(0);
+        for (int c = 0; c < NV; ++c) acc += row[c] * S.u18[c];
+        S.tdu[i] = acc;
+      }
+    } else if ((i -= N_TDU) < 9) {   // sum m (|r|^2 I - r r^T) + sum Iw
+      const int row = i / 3, col = i % 3;
+      T acc = T(0), dg = T(0);
+      for (int bb = 0; bb < NB; ++bb) {
+        const T mass = cb(bb)[CB_MASS];
+        acc += S.Iw[bb][i] - S.r[bb][row] * S.r[bb][col] * mass;
+        dg += dot3(S.r[bb], S.r[bb]) * mass;
+      }
+      S.rot[i] = (row == col) ? acc + dg : acc;
+    } else if ((i -= 9) < NV) {
+      T acc = T(0);
+      if (i < 3) {
+        for (int bb = 0; bb < NB; ++bb) acc += S.F[bb][i];
+      } else if (i < 6) {
+        for (int bb = 0; bb < NB; ++bb)
+          acc += cross_k(S.r[bb], S.F[bb], i - 3) + S.Nb[bb][i - 3];
+      } else {
+        const int j = i - 6;
+        for (unsigned m = S.desc[j]; m; m &= m - 1) {
+          const int bb = lowest_bit(m);
           acc += dot3(S.jq[bb][j], S.F[bb]) + dot3(S.axw[j], S.Nb[bb]);
-    }
-    S.hcor[i] = acc;
-  }
-  QWBC_FOR(k, 3) {
-    T acc = T(0);
-    for (int bb = 0; bb < NB; ++bb) acc += S.r[bb][k] * cb(bb)[CB_MASS];
-    S.mr[k] = acc;
-  }
-  QWBC_FOR(i, 9) {        // sum m (|r|^2 I - r r^T) + sum Iw
-    const int row = i / 3, col = i % 3;
-    T acc = T(0), dg = T(0);
-    for (int bb = 0; bb < NB; ++bb) {
-      const T mass = cb(bb)[CB_MASS];
-      acc += S.Iw[bb][i] - S.r[bb][row] * S.r[bb][col] * mass;
-      dg += dot3(S.r[bb], S.r[bb]) * mass;
-    }
-    S.rot[i] = (row == col) ? acc + dg : acc;
-  }
-  QWBC_FOR(i, 6 * NJ) {
-    const int row = i / NJ, j = i % NJ;
-    T acc = T(0);
-    for (int bb = 1; bb < NB; ++bb) {
-      if (!moves(bb, j)) continue;
-      const T mass = cb(bb)[CB_MASS];
-      if (row < 3)
-        acc += S.jq[bb][j][row] * mass;
-      else
-        acc += cross_k(S.r[bb], S.jq[bb][j], row - 3) * mass + S.Iwa[bb][j][row - 3];
-    }
-    S.Mbj[row][j] = acc;
-  }
-  QWBC_FOR(i, NJ * NJ) {
-    const int j = i / NJ, k = i % NJ;
-    T acc = T(0);
-    for (int bb = 1; bb < NB; ++bb)
-      if (moves(bb, j) && moves(bb, k))
+        }
+      }
+      S.hcor[i] = acc;
+    } else if ((i -= NV) < 3) {
+      const int k = i;
+      T acc = T(0);
+      for (int bb = 0; bb < NB; ++bb) acc += S.r[bb][k] * cb(bb)[CB_MASS];
+      S.mr[k] = acc;
+    } else if ((i -= 3) < 6 * NJ) {
+      const int row = i / NJ, j = i % NJ;
+      T acc = T(0);
+      for (unsigned m = S.desc[j]; m; m &= m - 1) {
+        const int bb = lowest_bit(m);
+        const T mass = cb(bb)[CB_MASS];
+        // one rounding, as the previous kernel's compiler fused it (nvcc
+        // would multiply apart here, behind a select of the two branches)
+        if (row < 3)
+          acc = fmadd(S.jq[bb][j][row], mass, acc);
+        else
+          acc += cross_k(S.r[bb], S.jq[bb][j], row - 3) * mass + S.Iwa[bb][j][row - 3];
+      }
+      S.Mbj[row][j] = acc;
+    } else {
+      i -= 6 * NJ;
+      const int j = i / NJ, k = i % NJ;
+      T acc = T(0);
+      for (unsigned m = S.desc[j] & S.desc[k]; m; m &= m - 1) {
+        const int bb = lowest_bit(m);
         acc += dot3(S.jq[bb][j], S.jq[bb][k]) * cb(bb)[CB_MASS]
                + dot3(S.axw[j], S.Iwa[bb][k]);
-    S.Mjj[j][k] = acc;
-  }
-  if constexpr (!EXACT) {
-    QWBC_FOR(i, 6) {      // the bias reads the CARRIED d(T^-1)/dt (one cycle stale)
-      const T* row = in(I_TDINV) + sb * NV * NV + i * NV;
-      T acc = T(0);
-      for (int c = 0; c < NV; ++c) acc += row[c] * S.u18[c];
-      S.tdu[i] = acc;
+      }
+      S.Mjj[j][k] = acc;
     }
-  } else {                // the tangents of sum m r, the rotational block and Mbj
+  }
+  if constexpr (EXACT) {   // the tangents of sum m r, the rotational block and Mbj
     QWBC_FOR(k, 3) {
       T acc = T(0);
       for (int bb = 0; bb < NB; ++bb) acc += G->r[bb][k] * cb(bb)[CB_MASS];
@@ -551,6 +691,9 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     }
   }
   QWBC_SYNC();
+  if constexpr (STOP == STOP_RECURSION) {   // the Coriolis bias, world inertias
+    return write_checksum(com_out, part(S.hcor, NV), part(S.Iw[0], NB * 9));
+  }
 
   // ---- stage: Mb and its inverse by the 3x3 Schur complement of m I ----
   QWBC_FOR(one, 1) {
@@ -617,6 +760,10 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     S.X[p][j] = S.X0[p][j] + acc;
   }
   QWBC_SYNC();
+  if constexpr (STOP == STOP_MASS) {   // X, Mjj, Mb^-1, Mbj
+    return write_checksum(com_out, part(S.X[0], 6 * NJ), part(S.Mjj[0], NJ * NJ),
+                                   part(S.Mbi[0], 36), part(S.Mbj[0], 6 * NJ));
+  }
 
   if constexpr (EXACT) {
     // ---- stages: the exact d(T^-1)/dt and the bias term it feeds, before
@@ -663,81 +810,85 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
   }
 
   // ---- stage: Mb X, centroidal base block, T top rows, bias before the
-  // projection, foot kinematics and centroidal foot Jacobians ----
-  QWBC_FOR(i, 6 * NJ) {
-    const int p = i / NJ, j = i % NJ;
-    T acc = T(0);
-    for (int k = 0; k < 6; ++k) acc += S.Mb[p][k] * S.X[k][j];
-    S.MbX[p][j] = acc;
-  }
-  QWBC_FOR(i, 36) {       // Mc_base = adj^T (Mb adj), adj = [[I, skew(dcom)], [0, I]]
-    const int p = i / 6, c = i % 6;
-    T v = adj_right(S.Mb[p], S.dcom, c);
-    if (p >= 3) {
-      const T top[3] = {adj_right(S.Mb[0], S.dcom, c), adj_right(S.Mb[1], S.dcom, c),
-                        adj_right(S.Mb[2], S.dcom, c)};
-      v -= cross_k(S.dcom, top, p - 3);
-    }
-    S.Mcb[p][c] = v;
-  }
-  QWBC_FOR(i, 6 * NV) {   // T top rows = [adj^-1 | adj^-1 X]
-    const int p = i / NV, c = i % NV;
-    T v;
-    if (c < 6) {
-      v = (c == p) ? T(1) : T(0);
-      if (p < 3 && c >= 3) v = neg_skew(S.dcom, p, c - 3);
-    } else {
-      const int j = c - 6;
-      v = S.X[p][j];
-      if (p < 3) {
-        const T xb[3] = {S.X[3][j], S.X[4][j], S.X[5][j]};
-        v -= cross_k(S.dcom, xb, p);
-      }
-    }
-    S.Ttop[p][c] = v;
-  }
-  QWBC_FOR(i, NV) {       // h_cor + M (d(T^-1)/dt u)
-    T acc = T(0);
-    if (i < 6)
-      for (int k = 0; k < 6; ++k) acc += S.Mb[i][k] * S.tdu[k];
-    else
-      for (int k = 0; k < 6; ++k) acc += S.Mbj[k][i - 6] * S.tdu[k];
-    S.hMT[i] = S.hcor[i] + acc;
-  }
-  QWBC_FOR(i, NL * NV) {
-    const int f = i / NV, c = i % NV, fb = foot_body[f];
-    const T* fp = mc + MC_FOOT + 3 * f;
-    T pf[3];
-    for (int k = 0; k < 3; ++k) pf[k] = S.p[fb][k] + mv3_row(S.R[fb], k, fp);
-    if (c < 3) {
-      // foot position and velocity ride on the first three items
-      const T rel[3] = {pf[0] - S.p[0][0], pf[1] - S.p[0][1], pf[2] - S.p[0][2]};
-      T vf = S.u18[c] + cross_k(S.u18 + 3, rel, c);
-      for (int j = 0; j < NJ; ++j)
-        if (moves(fb, j)) {
+  // projection, foot kinematics and centroidal foot Jacobians, the heavy
+  // items first; exact mode: then the foot Jacobians' tangents ----
+  QWBC_FOR(it, NL * NV + NV + 36 + 6 * NJ + 6 * NV) {
+    int i = it;
+    if (i < NL * NV) {
+      const int f = i / NV, c = i % NV, fb = foot_body[f];
+      const T* fp = mc + MC_FOOT + 3 * f;
+      T pf[3];
+      for (int k = 0; k < 3; ++k) pf[k] = S.p[fb][k] + mv3_row(S.R[fb], k, fp);
+      if (c < 3) {
+        // foot position and velocity ride on the first three items
+        const T rel[3] = {pf[0] - S.p[0][0], pf[1] - S.p[0][1], pf[2] - S.p[0][2]};
+        T vf = S.u18[c] + cross_k(S.u18 + 3, rel, c);
+        for (unsigned m = (unsigned)anc[fb]; m; m &= m - 1) {   // the joints moving fb
+          const int j = lowest_bit(m);
           const T dl[3] = {pf[0] - S.p[j + 1][0], pf[1] - S.p[j + 1][1],
                            pf[2] - S.p[j + 1][2]};
           vf += S.u18[6 + j] * cross_k(S.axw[j], dl, c);
         }
-      S.fpos[3 * f + c] = pf[c];
-      S.fvel[3 * f + c] = vf;
-      out(O_FPOS)[sb * 12 + 3 * f + c] = pf[c];
-      for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = (k == c) ? T(1) : T(0);
-    } else if (c < 6) {   // -skew(p_f - com), column c - 3
-      const T rc[3] = {pf[0] - S.com[0], pf[1] - S.com[1], pf[2] - S.com[2]};
-      for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = neg_skew(rc, k, c - 3);
-    } else {              // joint part: jq_f - [I | -skew(p_f - p_0)] X
-      const int j = c - 6;
-      const T rel[3] = {pf[0] - S.p[0][0], pf[1] - S.p[0][1], pf[2] - S.p[0][2]};
-      const T xb[3] = {S.X[3][j], S.X[4][j], S.X[5][j]};
-      T col[3];
-      for (int k = 0; k < 3; ++k) col[k] = -(S.X[k][j] - cross_k(rel, xb, k));
-      if (moves(fb, j)) {
-        const T dl[3] = {pf[0] - S.p[j + 1][0], pf[1] - S.p[j + 1][1],
-                         pf[2] - S.p[j + 1][2]};
-        for (int k = 0; k < 3; ++k) col[k] += cross_k(S.axw[j], dl, k);
+        S.fpos[3 * f + c] = pf[c];
+        S.fvel[3 * f + c] = vf;
+        if (full) out(O_FPOS)[sb * 12 + 3 * f + c] = pf[c];
+        for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = (k == c) ? T(1) : T(0);
+      } else if (c < 6) {   // -skew(p_f - com), column c - 3
+        const T rc[3] = {pf[0] - S.com[0], pf[1] - S.com[1], pf[2] - S.com[2]};
+        for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = neg_skew(rc, k, c - 3);
+      } else {              // joint part: jq_f - [I | -skew(p_f - p_0)] X
+        const int j = c - 6;
+        const T rel[3] = {pf[0] - S.p[0][0], pf[1] - S.p[0][1], pf[2] - S.p[0][2]};
+        const T xb[3] = {S.X[3][j], S.X[4][j], S.X[5][j]};
+        T col[3];
+        for (int k = 0; k < 3; ++k) col[k] = -(S.X[k][j] - cross_k(rel, xb, k));
+        if (moves(fb, j)) {
+          const T dl[3] = {pf[0] - S.p[j + 1][0], pf[1] - S.p[j + 1][1],
+                           pf[2] - S.p[j + 1][2]};
+          for (int k = 0; k < 3; ++k) col[k] += cross_k(S.axw[j], dl, k);
+        }
+        for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = col[k];
       }
-      for (int k = 0; k < 3; ++k) S.Jcf[f][k][c] = col[k];
+    } else if ((i -= NL * NV) < NV) {
+      // h_cor + M (d(T^-1)/dt u)
+      T acc = T(0);
+      if (i < 6)
+        for (int k = 0; k < 6; ++k) acc += S.Mb[i][k] * S.tdu[k];
+      else
+        for (int k = 0; k < 6; ++k) acc += S.Mbj[k][i - 6] * S.tdu[k];
+      S.hMT[i] = S.hcor[i] + acc;
+    } else if ((i -= NV) < 36) {
+      // Mc_base = adj^T (Mb adj), adj = [[I, skew(dcom)], [0, I]]
+      const int p = i / 6, c = i % 6;
+      T v = adj_right(S.Mb[p], S.dcom, c);
+      if (p >= 3) {
+        const T top[3] = {adj_right(S.Mb[0], S.dcom, c), adj_right(S.Mb[1], S.dcom, c),
+                          adj_right(S.Mb[2], S.dcom, c)};
+        v -= cross_k(S.dcom, top, p - 3);
+      }
+      S.Mcb[p][c] = v;
+    } else if ((i -= 36) < 6 * NJ) {
+      const int p = i / NJ, j = i % NJ;
+      T acc = T(0);
+      for (int k = 0; k < 6; ++k) acc += S.Mb[p][k] * S.X[k][j];
+      S.MbX[p][j] = acc;
+    } else {
+      i -= 6 * NJ;
+      // T top rows = [adj^-1 | adj^-1 X]
+      const int p = i / NV, c = i % NV;
+      T v;
+      if (c < 6) {
+        v = (c == p) ? T(1) : T(0);
+        if (p < 3 && c >= 3) v = neg_skew(S.dcom, p, c - 3);
+      } else {
+        const int j = c - 6;
+        v = S.X[p][j];
+        if (p < 3) {
+          const T xb[3] = {S.X[3][j], S.X[4][j], S.X[5][j]};
+          v -= cross_k(S.dcom, xb, p);
+        }
+      }
+      S.Ttop[p][c] = v;
     }
   }
   if constexpr (EXACT) {  // the foot Jacobians' tangents, term by term
@@ -779,91 +930,110 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
   // ---- stage: centroidal joint block, centroidal bias, finite differences
   // of T and of the masked foot Jacobians with their rows of A, l, u, the
   // desired wrench ----
-  QWBC_FOR(i, NJ * NJ) {
-    const int r = i / NJ, j = i % NJ;
-    T s1 = T(0), s2 = T(0), s3 = T(0);
-    for (int k = 0; k < 6; ++k) {
-      s1 += S.Mbj[k][r] * S.X[k][j];
-      s2 += S.X[k][r] * S.Mbj[k][j];
-      s3 += S.X[k][r] * S.MbX[k][j];
-    }
-    const T v = S.Mjj[r][j] - s1 - s2 + s3;
-    S.A[34 + r][6 + j] = v;
-    out(O_MCJJ)[sb * NJ * NJ + i] = v;
-  }
-  QWBC_FOR(i, NV) {
-    T v = S.hMT[i];
-    if (i >= 3 && i < 6) {
-      v -= cross_k(S.dcom, S.hMT, i - 3);
-    } else if (i >= 6) {
-      T acc = T(0);
-      for (int k = 0; k < 6; ++k) acc += S.X[k][i - 6] * S.hMT[k];
-      v -= acc;
-    }
-    S.hc[i] = v;
-    out(O_HC)[sb * NV + i] = v;
-  }
-  QWBC_FOR(i, NV * NV) {  // the new T (bottom rows [0 I]) and its difference
-    const int p = i / NV, c = i % NV;
-    T v = (p == c) ? T(1) : T(0);
-    if (p < 6) {
-      v = S.Ttop[p][c];
-      if constexpr (!EXACT)
-        S.Td[p][c] = S.gate * (v - in(I_OLD_T)[sb * NV * NV + i]) * sc[SC_INV_DT];
-    }
-    out(O_T)[sb * NV * NV + i] = v;
-  }
-  QWBC_FOR(i, 2 * 12) {
-    // one row of J_st (kind 0) or J_sw (kind 1): mask, store, difference
-    // against the carried row, and the row's right-hand side
-    const int kind = i / 12, row = i % 12, f = row / 3, k = row % 3;
-    const T scale = kind == 0 ? S.con[f] : T(1) - S.con[f];
-    const T* old = in(kind == 0 ? I_OLD_JST : I_OLD_JSW) + sb * 12 * NV + row * NV;
-    T* keep = out(kind == 0 ? O_JST : O_JSW) + sb * 12 * NV + row * NV;
-    T acc = T(0);
-    for (int c = 0; c < NV; ++c) {
-      const T v = S.Jcf[f][k][c] * scale;
-      keep[c] = v;
-      if (kind == 0) {
-        S.A[6 + row][c] = v;
-      } else {
-        S.A[46 + row][c] = v;
-        S.A[58 + row][c] = v;
+  // the items of a section before those of the next, so that a probe runs
+  // a prefix: h_c and Mc_jj (centroidal), T and the J rows (foot)
+  constexpr int N_CENTROIDAL = NV + NJ * NJ, N_FOOT = N_CENTROIDAL + NV * NV + 2 * 12;
+  constexpr int N_ITEMS = STOP == STOP_CENTROIDAL ? N_CENTROIDAL
+                          : STOP == STOP_FOOT     ? N_FOOT
+                                                  : N_FOOT + 6;
+  QWBC_FOR(it, N_ITEMS) {
+    int i = it;
+    if (i < NV) {
+      T v = S.hMT[i];
+      if (i >= 3 && i < 6) {
+        v -= cross_k(S.dcom, S.hMT, i - 3);
+      } else if (i >= 6) {
+        T acc = T(0);
+        for (int k = 0; k < 6; ++k) acc += S.X[k][i - 6] * S.hMT[k];
+        v -= acc;
       }
-      T jd;
-      if constexpr (EXACT)
-        jd = G->Jf[f][k][c] * scale;      // contacts held within the linearization
-      else
-        jd = S.gate * (v - old[c]) * sc[SC_INV_DT];
-      acc += jd * (c < 6 ? S.cvel[c] : S.u18[c]);
-    }
-    if (kind == 0) {
-      const T rhs = -acc;                 // one value, stored to both sides
-      S.l[6 + row] = rhs;
-      S.u[6 + row] = rhs;
+      S.hc[i] = v;
+      if (full) out(O_HC)[sb * NV + i] = v;
+    } else if ((i -= NV) < NJ * NJ) {
+      const int r = i / NJ, j = i % NJ;
+      T s1 = T(0), s2 = T(0), s3 = T(0);
+      for (int k = 0; k < 6; ++k) {
+        s1 += S.Mbj[k][r] * S.X[k][j];
+        s2 += S.X[k][r] * S.Mbj[k][j];
+        s3 += S.X[k][r] * S.MbX[k][j];
+      }
+      const T v = S.Mjj[r][j] - s1 - s2 + s3;
+      S.A[34 + r][6 + j] = v;
+      if (full) out(O_MCJJ)[sb * NJ * NJ + i] = v;
+    } else if ((i -= NJ * NJ) < NV * NV) {
+      // the new T (bottom rows [0 I]) and its difference
+      const int p = i / NV, c = i % NV;
+      T v = (p == c) ? T(1) : T(0);
+      if (p < 6) {
+        v = S.Ttop[p][c];
+        if constexpr (!EXACT)
+          S.Td[p][c] = S.gate * (v - in(I_OLD_T)[sb * NV * NV + i]) * sc[SC_INV_DT];
+      }
+      if (full) out(O_T)[sb * NV * NV + i] = v;
+    } else if ((i -= NV * NV) < 2 * 12) {
+      // one row of J_st (kind 0) or J_sw (kind 1): mask, store, difference
+      // against the carried row, and the row's right-hand side
+      const int kind = i / 12, row = i % 12, f = row / 3, k = row % 3;
+      const T scale = kind == 0 ? S.con[f] : T(1) - S.con[f];
+      const T* old = in(kind == 0 ? I_OLD_JST : I_OLD_JSW) + sb * 12 * NV + row * NV;
+      T* keep = out(kind == 0 ? O_JST : O_JSW) + sb * 12 * NV + row * NV;
+      T acc = T(0);
+      for (int c = 0; c < NV; ++c) {
+        const T v = S.Jcf[f][k][c] * scale;
+        if (full) keep[c] = v;
+        if (kind == 0) {
+          S.A[6 + row][c] = v;
+        } else {
+          S.A[46 + row][c] = v;
+          S.A[58 + row][c] = v;
+        }
+        T jd;
+        if constexpr (EXACT)
+          jd = G->Jf[f][k][c] * scale;      // contacts held within the linearization
+        else
+          jd = S.gate * (v - old[c]) * sc[SC_INV_DT];
+        acc += jd * (c < 6 ? S.cvel[c] : S.u18[c]);
+      }
+      if (kind == 0) {
+        const T rhs = -acc;                 // one value, stored to both sides
+        S.l[6 + row] = rhs;
+        S.u[6 + row] = rhs;
+      } else {
+        T a_cmd = S.sacc[row] + sc[SC_KD_SWING] * (S.svel[row] - S.fvel[row])
+                  + sc[SC_KP_SWING] * (S.spos[row] - S.fpos[row]);
+        a_cmd = a_cmd * (T(1) - S.con[f]);
+        const T rhs = a_cmd - acc;
+        S.u[46 + row] = rhs;
+        S.l[46 + row] = -sc[SC_INF];
+        S.l[58 + row] = rhs;
+        S.u[58 + row] = sc[SC_INF];
+      }
     } else {
-      T a_cmd = S.sacc[row] + sc[SC_KD_SWING] * (S.svel[row] - S.fvel[row])
-                + sc[SC_KP_SWING] * (S.spos[row] - S.fpos[row]);
-      a_cmd = a_cmd * (T(1) - S.con[f]);
-      const T rhs = a_cmd - acc;
-      S.u[46 + row] = rhs;
-      S.l[46 + row] = -sc[SC_INF];
-      S.l[58 + row] = rhs;
-      S.u[58 + row] = sc[SC_INF];
+      i -= 2 * 12;
+      const T pose = (i < 3) ? S.com[i] : S.rpy[i - 3];
+      const T err = pose - S.rpose[i];
+      T acc = T(0);
+      for (int k = 0; k < 6; ++k) acc += S.Mcb[i][k] * S.racc[k];
+      const T grav = (i == 2) ? sc[SC_MG] : T(0);
+      S.wdes[i] = -sc[SC_KP + i] * err - sc[SC_KD] * (S.cvel[i] - S.rvel[i])
+                  - sc[SC_KI] * S.integ[i] + grav + acc;
+      if (full) out(O_INTEG)[sb * 6 + i] = S.integ[i] + err * sc[SC_DT];
+      const T eq = -grav;                   // one value, stored to both sides
+      S.l[i] = eq;
+      S.u[i] = eq;
     }
   }
-  QWBC_FOR(i, 6) {
-    const T pose = (i < 3) ? S.com[i] : S.rpy[i - 3];
-    const T err = pose - S.rpose[i];
-    T acc = T(0);
-    for (int k = 0; k < 6; ++k) acc += S.Mcb[i][k] * S.racc[k];
-    const T grav = (i == 2) ? sc[SC_MG] : T(0);
-    S.wdes[i] = -sc[SC_KP + i] * err - sc[SC_KD] * (S.cvel[i] - S.rvel[i])
-                - sc[SC_KI] * S.integ[i] + grav + acc;
-    out(O_INTEG)[sb * 6 + i] = S.integ[i] + err * sc[SC_DT];
-    const T eq = -grav;                   // one value, stored to both sides
-    S.l[i] = eq;
-    S.u[i] = eq;
+  if constexpr (STOP == STOP_CENTROIDAL) {   // h_c, Mc_jj, Mc_base
+    QWBC_SYNC();
+    return write_checksum(com_out, part(S.hc, NV), part(&S.A[34][6], NJ * NJ, NJ, SN),
+                                   part(S.Mcb[0], 36));
+  }
+  // the masked foot Jacobians, the foot positions and velocities
+  if constexpr (STOP == STOP_FOOT) {
+    QWBC_SYNC();
+    return write_checksum(com_out, part(S.A[6], 12 * NV, NV, SN),
+                                   part(S.A[46], 12 * NV, NV, SN), part(S.fpos, 12),
+                                   part(S.fvel, 12));
   }
   QWBC_SYNC();
 
@@ -876,7 +1046,7 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
   QWBC_FOR(i, 12 * 12) {  // -J_st,j^T, and J_st,j for the torque map
     const int p = i / 12, r = i % 12;
     S.A[34 + p][18 + r] = -S.A[6 + r][6 + p];
-    out(O_JSTJ)[sb * 144 + i] = S.A[6 + p][6 + r];
+    if (full) out(O_JSTJ)[sb * 144 + i] = S.A[6 + p][6 + r];
   }
   QWBC_FOR(i, 16) {       // friction pyramid, contact-masked
     const int f = i / 4, k = i % 4;
@@ -898,7 +1068,7 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     const int p = i / 12, r = i % 12;
     T acc = T(0);
     for (int k = 0; k < 6; ++k) acc += S.A[6 + p][k] * S.A[6 + r][k];
-    S.H[18 + p][18 + r] = (p == r) ? acc + T(1) : acc;
+    S.Hb[p][r] = (p == r) ? acc + T(1) : acc;
   }
   QWBC_FOR(i, NQ) {
     T gv = T(0);
@@ -906,7 +1076,7 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
       for (int k = 0; k < 6; ++k) gv += S.A[6 + i - 18][k] * S.wdes[k];
       gv = -gv;
     } else {
-      S.H[i][i] = (i < 18) ? T(1) : sc[SC_SLACK_W];
+      S.Hd[i] = (i < 18) ? T(1) : sc[SC_SLACK_W];
     }
     S.g[i] = gv;
   }
@@ -914,6 +1084,25 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     QWBC_FOR(c, NV) adj_tdot_col(S, c);   // adj applied to the columns of dT/dt
   }
   QWBC_SYNC();
+  if constexpr (STOP == STOP_FD) {   // the new d(T^-1)/dt, Jdot (stance, swing), T top rows
+    auto tdi = [&](int i) {
+      if constexpr (EXACT) return G->tdi[i / NV][i % NV];
+      else return tdinv_entry(S, i / NV, i % NV);
+    };
+    auto jd = [&](int i) {   // as the J rows formed it: row r = i / NV of J_st, then J_sw
+      const int r = i / NV, c = i % NV, kind = r / 12, row = r % 12;
+      const int f = row / 3, k = row % 3;
+      const T scale = kind == 0 ? S.con[f] : T(1) - S.con[f];
+      if constexpr (EXACT) {
+        return G->Jf[f][k][c] * scale;
+      } else {
+        const T old = in(kind == 0 ? I_OLD_JST : I_OLD_JSW)[sb * 12 * NV + row * NV + c];
+        return S.gate * (S.Jcf[f][k][c] * scale - old) * sc[SC_INV_DT];
+      }
+    };
+    return write_checksum(com_out, formed(6 * NV, tdi), formed(24 * NV, jd),
+                          part(S.Ttop[0], 6 * NV));
+  }
 
   // ---- stage: d(T^-1)/dt = -[adj D1 adj | adj (D2 - D1 X)], the unscaled
   // problem to device memory ----
@@ -929,7 +1118,8 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
     out(O_TDINV)[sb * NV * NV + i] = v;
   }
   QWBC_FOR(i, MQ * NQ) out(O_A)[sb * MQ * NQ + i] = S.A[i / NQ][i % NQ];
-  QWBC_FOR(i, NQ * NQ) out(O_H)[sb * NQ * NQ + i] = S.H[i / NQ][i % NQ];
+  const WbcH<T> H{S.Hd, &S.Hb[0][0]};
+  QWBC_FOR(i, NQ * NQ) out(O_H)[sb * NQ * NQ + i] = H.at(i / NQ, i % NQ);
   QWBC_FOR(i, NQ) out(O_G)[sb * NQ + i] = S.g[i];
   QWBC_FOR(i, MQ) {
     out(O_L)[sb * MQ + i] = S.l[i];
@@ -938,7 +1128,7 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
 
   // ---- the fused prepare tail, on the A and H just assembled ----
   if (fused)
-    prepare_tail(&S.H[0][0], &S.A[0][0], SN, S.d[0], S.e[0], S.d[1], S.e[1],
+    prepare_tail(H, &S.A[0][0], SN, S.d[0], S.e[0], S.d[1], S.e[1],
                  S.g, S.l, S.u, in(I_WX) + sb * NQ, in(I_WZ) + sb * MQ,
                  in(I_WY) + sb * MQ, S.dropd != 0,
                  out(O_SH) + sb * NQ * NQ, out(O_SA) + sb * MQ * NQ,
@@ -948,67 +1138,66 @@ __device__ void setup_block(const SetupPtrs& a, int b, int refnew_stride,
                  NQ, MQ, sweeps, rho0, rho_eq);
 }
 
+// The probes (STOP > 0) are float32 only.  The nvcc build compiles this
+// file twice: without QWBC_SETUP_SECTIONS the whole kernels and
+// qwbc_setup_f32/f64, with it the sixteen probe kernels and
+// qwbc_setup_sections_f32 alone (a second object, built beside the others);
+// the host build compiles both halves in one.
+#if defined(__CUDACC__) && defined(QWBC_SETUP_SECTIONS)
+#define QWBC_SETUP_WHOLE 0
+#define QWBC_SETUP_PROBES 1
+#elif defined(__CUDACC__)
+#define QWBC_SETUP_WHOLE 1
+#define QWBC_SETUP_PROBES 0
+#else
+#define QWBC_SETUP_WHOLE 1
+#define QWBC_SETUP_PROBES 1
+#endif
+
+struct SetupArgs {
+  int B, refnew_stride, fused, sweeps;
+};
+
 #ifdef __CUDACC__
 
 // shared memory a block: SetupShared, then in exact mode SetupTangents
-// (float32: 32.5 + 3.6 KB; float64: 65 + 7.3 KB, above the 48 KB default)
+// (float32: 21.4 + 3.6 KB; float64: 42.6 + 7.1 KB, above the 48 KB default)
 template <typename T, bool EXACT>
 constexpr size_t setup_smem() {
   return sizeof(SetupShared<T>) + (EXACT ? sizeof(SetupTangents<T>) : 0);
 }
 
-template <typename T, bool EXACT>
+template <typename T, bool EXACT, int STOP>
 __global__ void setup_kernel(SetupPtrs a, int refnew_stride, int fused,
                              int sweeps, T rho0, T rho_eq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SetupTangents<T>* G = EXACT ? reinterpret_cast<SetupTangents<T>*>(
                                     smem_raw + sizeof(SetupShared<T>))
                               : nullptr;
-  setup_block<T, EXACT>(a, blockIdx.x, refnew_stride, fused, sweeps, rho0, rho_eq,
-                        *reinterpret_cast<SetupShared<T>*>(smem_raw), G);
+  setup_block<T, EXACT, STOP>(a, blockIdx.x, refnew_stride, fused, sweeps, rho0, rho_eq,
+                              *reinterpret_cast<SetupShared<T>*>(smem_raw), G);
 }
 
-template <typename T, bool EXACT>
-int launch_setup_variant(const SetupPtrs& a, int B, int refnew_stride, int fused,
-                         int sweeps, T rho0, T rho_eq, void* stream) {
+template <typename T, bool EXACT, int STOP>
+int launch_setup_variant(const SetupPtrs& a, const SetupArgs& s, T rho0, T rho_eq,
+                         void* stream) {
   constexpr size_t smem = setup_smem<T, EXACT>();
-  if (int err = allow_shared_memory<setup_kernel<T, EXACT>>(smem)) return err;
-  setup_kernel<T, EXACT><<<B, 128, smem, (cudaStream_t)stream>>>(
-      a, refnew_stride, fused, sweeps, rho0, rho_eq);
+  if (int err = allow_shared_memory<setup_kernel<T, EXACT, STOP>>(smem)) return err;
+  setup_kernel<T, EXACT, STOP><<<s.B, 128, smem, (cudaStream_t)stream>>>(
+      a, s.refnew_stride, s.fused, s.sweeps, rho0, rho_eq);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_setup(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
-                 int B, int refnew_stride, int exact, int fused, int sweeps, T rho0,
-                 T rho_eq, void* stream) {
-  if (n_ptrs != N_PTRS || mc_len != MC_SIZE || topo_len != TP_SIZE)
-    return (int)cudaErrorInvalidValue;
-  SetupPtrs a;
-  for (int k = 0; k < N_PTRS; ++k) a.p[k] = const_cast<void*>(ptrs[k]);
-  return exact ? launch_setup_variant<T, true>(a, B, refnew_stride, fused, sweeps,
-                                               rho0, rho_eq, stream)
-               : launch_setup_variant<T, false>(a, B, refnew_stride, fused, sweeps,
-                                                rho0, rho_eq, stream);
 }
 
 #else  // plain C++: one thread runs the blocks one after the other
 
-template <typename T>
-int launch_setup(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
-                 int B, int refnew_stride, int exact, int fused, int sweeps, T rho0,
-                 T rho_eq, void*) {
-  if (n_ptrs != N_PTRS || mc_len != MC_SIZE || topo_len != TP_SIZE) return 1;
-  SetupPtrs a;
-  for (int k = 0; k < N_PTRS; ++k) a.p[k] = const_cast<void*>(ptrs[k]);
+template <typename T, bool EXACT, int STOP>
+int launch_setup_variant(const SetupPtrs& a, const SetupArgs& s, T rho0, T rho_eq,
+                         void*) {
   SetupShared<T>* S = new SetupShared<T>;
-  SetupTangents<T>* G = new SetupTangents<T>;
-  for (int b = 0; b < B; ++b) {
-    if (exact)
-      setup_block<T, true>(a, b, refnew_stride, fused, sweeps, rho0, rho_eq, *S, G);
-    else
-      setup_block<T, false>(a, b, refnew_stride, fused, sweeps, rho0, rho_eq, *S, nullptr);
-  }
+  SetupTangents<T>* G = EXACT ? new SetupTangents<T> : nullptr;
+  for (int b = 0; b < s.B; ++b)
+    setup_block<T, EXACT, STOP>(a, b, s.refnew_stride, s.fused, s.sweeps, rho0, rho_eq,
+                                *S, G);
   delete G;
   delete S;
   return 0;
@@ -1016,10 +1205,67 @@ int launch_setup(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
 
 #endif
 
+inline int invalid_value() {
+#ifdef __CUDACC__
+  return (int)cudaErrorInvalidValue;
+#else
+  return 1;
+#endif
+}
+
+template <typename T>
+int setup_table(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
+                SetupPtrs& a) {
+  if (n_ptrs != N_PTRS || mc_len != MC_SIZE || topo_len != TP_SIZE) return invalid_value();
+  for (int k = 0; k < N_PTRS; ++k) a.p[k] = const_cast<void*>(ptrs[k]);
+  return 0;
+}
+
+#if QWBC_SETUP_PROBES
+template <bool EXACT, int STOP = STOP_INPUTS>
+int launch_probe(const SetupPtrs& a, const SetupArgs& s, int stop, void* stream) {
+  if constexpr (STOP < N_STOPS) {
+    if (stop == STOP)
+      return launch_setup_variant<float, EXACT, STOP>(a, s, 0.0f, 0.0f, stream);
+    return launch_probe<EXACT, STOP + 1>(a, s, stop, stream);
+  } else {
+    return invalid_value();
+  }
+}
+#endif
+
+#if QWBC_SETUP_WHOLE
+template <typename T>
+int launch_setup(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len, int B,
+                 int refnew_stride, int exact, int fused, int sweeps, T rho0, T rho_eq,
+                 void* stream) {
+  SetupPtrs a;
+  if (int err = setup_table<T>(ptrs, n_ptrs, mc_len, topo_len, a)) return err;
+  const SetupArgs s{B, refnew_stride, fused, sweeps};
+  return exact ? launch_setup_variant<T, true, STOP_NONE>(a, s, rho0, rho_eq, stream)
+               : launch_setup_variant<T, false, STOP_NONE>(a, s, rho0, rho_eq, stream);
+}
+#endif
+
 }  // namespace qwbc
 
 extern "C" {
 
+#if QWBC_SETUP_PROBES
+// a section probe (stop_after 1..8, the STOP_* order), float32: the kernel
+// up to that section, com the checksum; rho and the prepare tail unused
+int qwbc_setup_sections_f32(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
+                            int B, int refnew_stride, int exact, int stop_after,
+                            void* stream) {
+  qwbc::SetupPtrs a;
+  if (int err = qwbc::setup_table<float>(ptrs, n_ptrs, mc_len, topo_len, a)) return err;
+  const qwbc::SetupArgs s{B, refnew_stride, 0, 0};
+  return exact ? qwbc::launch_probe<true>(a, s, stop_after, stream)
+               : qwbc::launch_probe<false>(a, s, stop_after, stream);
+}
+#endif
+
+#if QWBC_SETUP_WHOLE
 #ifndef __CUDACC__
 int qwbc_host_reverse = 0;
 #endif
@@ -1027,17 +1273,16 @@ int qwbc_host_reverse = 0;
 int qwbc_setup_f32(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
                    int B, int refnew_stride, int exact, int fused, int sweeps,
                    float rho0, float rho_eq, void* stream) {
-  return qwbc::launch_setup<float>(ptrs, n_ptrs, mc_len, topo_len, B,
-                                   refnew_stride, exact, fused, sweeps, rho0,
-                                   rho_eq, stream);
+  return qwbc::launch_setup<float>(ptrs, n_ptrs, mc_len, topo_len, B, refnew_stride, exact,
+                                   fused, sweeps, rho0, rho_eq, stream);
 }
 
 int qwbc_setup_f64(const void* const* ptrs, int n_ptrs, int mc_len, int topo_len,
                    int B, int refnew_stride, int exact, int fused, int sweeps,
                    double rho0, double rho_eq, void* stream) {
-  return qwbc::launch_setup<double>(ptrs, n_ptrs, mc_len, topo_len, B,
-                                    refnew_stride, exact, fused, sweeps, rho0,
-                                    rho_eq, stream);
+  return qwbc::launch_setup<double>(ptrs, n_ptrs, mc_len, topo_len, B, refnew_stride, exact,
+                                    fused, sweeps, rho0, rho_eq, stream);
 }
+#endif
 
 }  // extern "C"

@@ -23,6 +23,10 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("prepare.cu", "admm_zy.cu", "admm.cu", "polish.cu", "polish_compact.cu",
            "setup.cu", "ns_warm.cu")
 HEADERS = ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh")
+# the objects of the device build: every source once, and setup.cu a second
+# time with its section probes alone (see there), compiled beside the others
+OBJECTS = tuple((name, name[:-3], ()) for name in SOURCES) + (
+    ("setup.cu", "setup_sections", ("-DQWBC_SETUP_SECTIONS",)),)
 # sources written with the stage macros of common.cuh alone, which also
 # compile as plain C++ (see `host_lib`)
 HOST_SOURCES = ("setup.cu", "ns_warm.cu", "polish_compact.cu", "admm_zy.cu")
@@ -38,6 +42,7 @@ _lib = None
 _host_lib = None
 build_seconds = None   # wall time of the build this process ran, if any
 build_log = ""         # what nvcc printed (register / shared-memory use)
+object_seconds = {}    # object -> seconds from the build's start to its compile's end
 
 
 def build_dir() -> str:
@@ -75,16 +80,17 @@ def _build(lib_path: str) -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         procs = []
-        for name in SOURCES:
-            obj = os.path.join(tmp, name.replace(".cu", ".o"))
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c",
-                   os.path.join(CSRC_DIR, name), "-o", obj]
+        for src, name, extra in OBJECTS:
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", CSRC_DIR, "-c",
+                   os.path.join(CSRC_DIR, src), "-o", obj]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         objs, logs, failed = [], [], []
         for name, obj, p in procs:
             out, _ = p.communicate()
             logs.append(f"== {name}\n{out}")
+            object_seconds[name] = time.perf_counter() - t0
             if p.returncode != 0:
                 failed.append(name)
             objs.append(obj)
@@ -103,13 +109,15 @@ def _build(lib_path: str) -> None:
 
 
 def ptxas_report(source: str) -> list:
-    """What ptxas printed for the kernels of one source in the build this
-    process ran (empty if it loaded an earlier build): one dict a kernel,
+    """What ptxas printed for the kernels of one object ("setup" for
+    setup.cu, "setup_sections" for its probes) in the build this process
+    ran (empty if it loaded an earlier build): one dict a kernel,
     {"kernel", "registers", "stack_bytes", "spill_store_bytes",
     "spill_load_bytes"}; the kernel named as mangled, trimmed of the
     namespace and the argument list."""
-    section = build_log.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0] \
-        if f"== {source}\n" in build_log else ""
+    name = source[:-3] if source.endswith(".cu") else source
+    section = build_log.split(f"== {name}\n", 1)[-1].split("\n== ", 1)[0] \
+        if f"== {name}\n" in build_log else ""
     out = []
     for ln in section.splitlines():
         if m := re.search(r"Compiling entry function '(?:_ZN4qwbc\d+)?(\w+?)(?:Ev|EEv)", ln):
@@ -169,6 +177,11 @@ def _declare_setup(lib, suffix, real) -> None:
     # of ref_is_new, exact, fused, sweeps, rho0, rho_eq, stream
     fn.argtypes = [ctypes.POINTER(_PTR), i, i, i, i, i, i, i, i, real, real, _PTR]
     fn.restype = i
+    if suffix == "f32":
+        # the section probes: the same table, B, stride, exact, stop_after, stream
+        fn = lib.qwbc_setup_sections_f32
+        fn.argtypes = [ctypes.POINTER(_PTR), i, i, i, i, i, i, i, _PTR]
+        fn.restype = i
 
 
 def _declare_polish(lib, suffix, real) -> None:

@@ -27,13 +27,21 @@ recursion in the kernel, and the centroidal bias reads the fresh
 d(T^-1)/dt; its plain version is `wbc_setup`'s exact branch (forward-mode
 AD through the rigid-body code), another derivation of the same numbers.
 
-Not carried over from the JAX function: `interpret`, the batch-minor
-`prepared_layout` and `stop_after` (a profiling truncation).
+`stop_after` (profiling only, float32 on the card: the section probes of
+`csrc/setup.cu`) truncates the kernel after one of `SECTIONS` and writes a
+checksum of that section's live values into `com` (three copies); every
+other output is left unwritten.  A probe has its own C entry point
+(`qwbc_setup_sections_f32`) and counts in no launch counter.
+`tools/torch_setup_sections.py` times them.
+
+Not carried over from the JAX function: `interpret` and the batch-minor
+`prepared_layout`.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -53,17 +61,45 @@ LAUNCHES = {"setup_batched": 0, "setup_batched_exact": 0}
 PLAIN_CALLS = {"setup_batched": 0, "setup_batched_exact": 0}
 
 NUM_BODIES = 13          # compiled into csrc/setup.cu, with NUM_JOINTS, NUM_LEGS
+# the stop_after sections, in the order of STOP_* in csrc/setup.cu (from 1)
+SECTIONS = ("inputs", "fk", "jac", "recursion", "mass", "centroidal", "foot", "fd")
 PREPARED = ("sH", "sA", "sg", "sl", "su", "rho", "wxs", "wzs", "wys", "d", "e")
 
-# the kernel's pointer table, in the order of the enum in csrc/setup.cu
-_REAL_IN = ("R0", "p0", "bv", "q", "qd", "rpose", "rvel", "racc", "spos", "svel",
-            "sacc", "rcon", "old_T", "old_J_st", "old_J_sw", "tdot_inv", "integ",
-            "prevc", "wx", "wz", "wy", "mc")
-_OTHER_IN = ("switch_flag", "deriv_valid", "ref_is_new", "topo")
-_REAL_OUT = ("A", "g", "l", "u", "H", "h_c", "com", "current_pose", "foot_pos",
-             "Mc_jj", "Jc_st_j", "old_T_new", "old_J_st_new", "old_J_sw_new",
-             "tdot_inv_new", "integ_new", "prevc_new") + PREPARED
-_POINTERS = _REAL_IN + _OTHER_IN + _REAL_OUT + ("switch_flag_new",)
+# The kernel's pointer table, in the order of the enum in csrc/setup.cu: the
+# caller's inputs of the kernel's type (argument, field, shape after the
+# batch), the warm start (fused only), the model table; the flags and the
+# topology; the outputs of the kernel's type (name, shape after the batch),
+# the prepared tensors (fused only); the two flag outputs.
+_N, _M, _NJ = QP_NUM_VARS, QP_NUM_CONSTRAINTS, NUM_JOINTS
+_CALLER_IN = (
+    ("obs", "base_R", (3, 3)), ("obs", "base_p", (3,)), ("obs", "base_vel", (6,)),
+    ("obs", "q", (_NJ,)), ("obs", "qd", (_NJ,)),
+    ("ref", "com_pose", (6,)), ("ref", "com_vel", (6,)), ("ref", "com_acc", (6,)),
+    ("ref", "swing_pos", (12,)), ("ref", "swing_vel", (12,)), ("ref", "swing_acc", (12,)),
+    ("ref", "contacts", (NUM_LEGS,)),
+    ("carry", "old_T", (NV, NV)), ("carry", "old_J_st", (12, NV)),
+    ("carry", "old_J_sw", (12, NV)), ("carry", "tdot_inv", (NV, NV)),
+    ("carry", "integral_error", (6,)), ("carry", "prev_contacts", (NUM_LEGS,)))
+_WARM_IN = (("x", (_N,)), ("z", (_M,)), ("y", (_M,)))
+_OUT = (("A", (_M, _N)), ("g", (_N,)), ("l", (_M,)), ("u", (_M,)), ("H", (_N, _N)),
+        ("h_c", (NV,)), ("com", (3,)), ("current_pose", (6,)), ("foot_pos", (12,)),
+        ("Mc_jj", (_NJ, _NJ)), ("Jc_st_j", (12, _NJ)), ("old_T", (NV, NV)),
+        ("old_J_st", (12, NV)), ("old_J_sw", (12, NV)), ("tdot_inv", (NV, NV)),
+        ("integral_error", (6,)), ("prev_contacts", (NUM_LEGS,)))
+_PREPARED_OUT = tuple(zip(PREPARED, ((_N, _N), (_M, _N), (_N,), (_M,), (_M,), (_M,),
+                                     (_N,), (_M,), (_M,), (_N,), (_M,))))
+_N_PTRS = len(_CALLER_IN) + len(_WARM_IN) + 1 + 4 + len(_OUT) + len(_PREPARED_OUT) + 2
+_PTR_TABLE = ctypes.c_void_p * _N_PTRS
+
+
+@functools.lru_cache(maxsize=None)
+def _shapes(B: int, fused: bool):
+    """The batch's input shapes (caller inputs, then the warm start) and
+    output shapes, in the table's order."""
+    ins = tuple((B, *s) for _, _, s in _CALLER_IN)
+    warm = tuple((B, *s) for _, s in _WARM_IN) if fused else ()
+    outs = tuple((B, *s) for _, s in _OUT + (_PREPARED_OUT if fused else ()))
+    return ins, warm, outs
 
 _constants = {}   # (id(model), params, dtype, device) -> (model, mc, topo)
 
@@ -121,20 +157,13 @@ def _device_constants(model, params, dtype, device):
     return _constants[key][1:]
 
 
-def _result(A, g, l, u, H, prepared, h_c, Mc_jj, Jc_st_j, com, current_pose,
-            foot_pos, old_T, old_J_st, old_J_sw, tdot_inv, integral_error,
-            prev_contacts, switch_flag):
-    return dict(
-        H=H, g=g, A=A, l=l, u=u, prepared=prepared,
-        h_c=h_c, Mc_jj=Mc_jj, Jc_st_j=Jc_st_j, com=com,
-        current_pose=current_pose, foot_pos=foot_pos,
-        carry_updates=dict(
-            old_T=old_T, old_J_st=old_J_st, old_J_sw=old_J_sw, tdot_inv=tdot_inv,
-            integral_error=integral_error, prev_contacts=prev_contacts,
-            switch_flag=switch_flag,
-            deriv_valid=torch.ones_like(switch_flag),
-        ),
-    )
+def _result(outs, fused, switch_flag, deriv_valid):
+    """The result dict from the outputs in the table's order."""
+    named = dict(zip((k for k, _ in _OUT), outs))
+    cu = {k: named.pop(k) for k in ("old_T", "old_J_st", "old_J_sw", "tdot_inv",
+                                    "integral_error", "prev_contacts")}
+    return dict(**named, prepared=tuple(outs[len(_OUT):]) if fused else None,
+                carry_updates=dict(**cu, switch_flag=switch_flag, deriv_valid=deriv_valid))
 
 
 def _counter(exact_mode) -> str:
@@ -159,92 +188,82 @@ def setup_batched_plain(model, params, obs, ref, carry, ref_is_new,
     params = dataclasses.replace(params, exact_derivatives=bool(exact_mode))
     s = wbc.wbc_setup(model, params, obs, ref, carry, rn)
     d, cu = s.qp_data, s.carry_updates
-    prepared = None
+    prepared = ()
     if qp_params is not None:
         warm = wbc._switch_masked_warm(carry, cu["switch_flag"])
         prepared = prepare.prepare_scaled_plain(
             d.H, d.A, d.g, d.l, d.u, warm.x, warm.z, warm.y,
             sweeps=qp_params.scaling_iters, rho0=qp_params.rho,
             rho_eq_scale=qp_params.rho_eq_scale)
-    return _result(
-        d.A, d.g, d.l, d.u, d.H, prepared, s.h_c, s.Mc_jj, s.Jc_st_j, s.com,
-        s.current_pose, s.foot_pos, cu["old_T"], cu["old_J_st"], cu["old_J_sw"],
-        cu["tdot_inv"], cu["integral_error"], cu["prev_contacts"],
-        cu["switch_flag"])
+    outs = (d.A, d.g, d.l, d.u, d.H, s.h_c, s.com, s.current_pose, s.foot_pos, s.Mc_jj,
+            s.Jc_st_j, *(cu[k] for k in ("old_T", "old_J_st", "old_J_sw", "tdot_inv",
+                                         "integral_error", "prev_contacts")), *prepared)
+    sw = cu["switch_flag"]
+    return _result(outs, qp_params is not None, sw, torch.ones_like(sw))
+
+
+def _stop_index(stop_after, dtype) -> int:
+    if stop_after is None:
+        return 0
+    if stop_after not in SECTIONS:
+        raise ValueError(f"stop_after: {stop_after!r} is none of {SECTIONS}")
+    if dtype != torch.float32:
+        raise ValueError(f"stop_after: the section probes are float32 only, got {dtype}")
+    return SECTIONS.index(stop_after) + 1
 
 
 def _run(launch, check, model, params, obs, ref, carry, ref_is_new, qp_params,
-         exact_mode):
-    """Marshal the tensors into the kernel's pointer table, allocate the
-    outputs and call `launch(suffix, *launcher arguments)`."""
+         exact_mode, stop_after=None):
+    """Check the caller's tensors, allocate the outputs, fill the kernel's
+    pointer table and call `launch(entry, suffix, *launcher arguments)`:
+    entry "setup" the whole kernel, "setup_sections" a section probe."""
     B, dtype, dev = obs.q.shape[0], obs.base_p.dtype, obs.base_p.device
-    n, m, nj = QP_NUM_VARS, QP_NUM_CONSTRAINTS, NUM_JOINTS
+    stop = _stop_index(stop_after, dtype)
     rn = _ref_is_new(ref_is_new, B, dev)
     mc, topo = _device_constants(model, params, dtype, dev)
     fused = qp_params is not None
-    real_in = {
-        "R0": (obs.base_R, (B, 3, 3)), "p0": (obs.base_p, (B, 3)),
-        "bv": (obs.base_vel, (B, 6)), "q": (obs.q, (B, nj)), "qd": (obs.qd, (B, nj)),
-        "rpose": (ref.com_pose, (B, 6)), "rvel": (ref.com_vel, (B, 6)),
-        "racc": (ref.com_acc, (B, 6)), "spos": (ref.swing_pos, (B, 12)),
-        "svel": (ref.swing_vel, (B, 12)), "sacc": (ref.swing_acc, (B, 12)),
-        "rcon": (ref.contacts, (B, NUM_LEGS)),
-        "old_T": (carry.old_T, (B, NV, NV)), "old_J_st": (carry.old_J_st, (B, 12, NV)),
-        "old_J_sw": (carry.old_J_sw, (B, 12, NV)),
-        "tdot_inv": (carry.tdot_inv, (B, NV, NV)),
-        "integ": (carry.integral_error, (B, 6)),
-        "prevc": (carry.prev_contacts, (B, NUM_LEGS)),
-        "mc": (mc, tuple(mc.shape)),
-    }
-    if fused:
-        real_in.update(wx=(carry.qp_warm.x, (B, n)), wz=(carry.qp_warm.z, (B, m)),
-                       wy=(carry.qp_warm.y, (B, m)))
-    suffix = check(obs.base_p, real_in)
-    flags = {"switch_flag": carry.switch_flag, "deriv_valid": carry.deriv_valid,
-             "ref_is_new": rn}
-    for name, t in flags.items():
+    in_shapes, warm_shapes, out_shapes = _shapes(B, fused)
+    args = {"obs": obs, "ref": ref, "carry": carry}
+    ins = [getattr(args[a], f) for a, f, _ in _CALLER_IN]
+    warm = [getattr(carry.qp_warm, f) for f, _ in _WARM_IN] if fused else []
+    named = {f: (t, s) for (_, f, _), t, s in zip(_CALLER_IN, ins, in_shapes)}
+    named.update({"qp_warm." + f: (t, s) for (f, _), t, s in zip(_WARM_IN, warm, warm_shapes)})
+    named["mc"] = (mc, tuple(mc.shape))
+    suffix = check(obs.base_p, named)
+    flags = (carry.switch_flag, carry.deriv_valid, rn)
+    for name, t in zip(("switch_flag", "deriv_valid", "ref_is_new"), flags):
         if t.dtype != torch.bool or t.device != dev or tuple(t.shape) != (B,):
             raise ValueError(f"{name}: expected a ({B},) bool tensor on {dev}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    for name in ("switch_flag", "deriv_valid"):
-        if not flags[name].is_contiguous():
+        if name != "ref_is_new" and not t.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
 
-    new = lambda *shape: torch.empty(shape, dtype=dtype, device=dev)
-    shapes = {
-        "A": (B, m, n), "g": (B, n), "l": (B, m), "u": (B, m), "H": (B, n, n),
-        "h_c": (B, NV), "com": (B, 3), "current_pose": (B, 6), "foot_pos": (B, 12),
-        "Mc_jj": (B, nj, nj), "Jc_st_j": (B, 12, nj), "old_T_new": (B, NV, NV),
-        "old_J_st_new": (B, 12, NV), "old_J_sw_new": (B, 12, NV),
-        "tdot_inv_new": (B, NV, NV), "integ_new": (B, 6), "prevc_new": (B, NUM_LEGS),
-    }
-    if fused:
-        shapes.update(sH=(B, n, n), sA=(B, m, n), sg=(B, n), sl=(B, m), su=(B, m),
-                      rho=(B, m), wxs=(B, n), wzs=(B, m), wys=(B, m), d=(B, n),
-                      e=(B, m))
-    o = {k: new(*s) for k, s in shapes.items()}
-    o["switch_flag_new"] = torch.empty(B, dtype=torch.bool, device=dev)
+    outs = [torch.empty(s, dtype=dtype, device=dev) for s in out_shapes]
+    switch_flag, deriv_valid = (torch.empty(B, dtype=torch.bool, device=dev)
+                                for _ in range(2))
     if B > 0:
-        tensors = {**{k: t for k, (t, _) in real_in.items()}, **flags,
-                   "topo": topo, **o}
-        table = (ctypes.c_void_p * len(_POINTERS))(
-            *(tensors[k].data_ptr() if k in tensors else None for k in _POINTERS))
+        table = _PTR_TABLE(
+            *(t.data_ptr() for t in ins),
+            *((t.data_ptr() for t in warm) if fused else (None,) * len(_WARM_IN)),
+            mc.data_ptr(), *(t.data_ptr() for t in flags), topo.data_ptr(),
+            *(t.data_ptr() for t in outs),
+            *(() if fused else (None,) * len(_PREPARED_OUT)),
+            switch_flag.data_ptr(), deriv_valid.data_ptr())
+        head = (table, _N_PTRS, mc.numel(), topo.numel(), B, rn.stride(0),
+                int(bool(exact_mode)))
         qpp = qp_params
-        launch(suffix, table, len(_POINTERS), mc.numel(), topo.numel(), B,
-               rn.stride(0), int(bool(exact_mode)), int(fused),
-               int(qpp.scaling_iters) if fused else 0,
-               float(qpp.rho) if fused else 0.0,
-               float(qpp.rho * qpp.rho_eq_scale) if fused else 0.0)
-    return _result(
-        o["A"], o["g"], o["l"], o["u"], o["H"],
-        tuple(o[k] for k in PREPARED) if fused else None,
-        o["h_c"], o["Mc_jj"], o["Jc_st_j"], o["com"], o["current_pose"],
-        o["foot_pos"], o["old_T_new"], o["old_J_st_new"], o["old_J_sw_new"],
-        o["tdot_inv_new"], o["integ_new"], o["prevc_new"], o["switch_flag_new"])
+        if stop:
+            launch("setup_sections", suffix, *head, stop)
+        else:
+            launch("setup", suffix, *head, int(fused),
+                   int(qpp.scaling_iters) if fused else 0,
+                   float(qpp.rho) if fused else 0.0,
+                   float(qpp.rho * qpp.rho_eq_scale) if fused else 0.0)
+    return _result(outs, fused, switch_flag, deriv_valid)
 
 
 def setup_batched(model, params, obs, ref, carry, ref_is_new, qp_params=None,
-                  exact_mode=False):
+                  exact_mode=False, stop_after=None):
     """The WBC setup of a batch, as a dict with the JAX function's keys:
     the QP (`H, g, A, l, u`), `prepared` (the 11 tensors of
     `prepare.prepare_scaled`, for `ops.qp.solve_batched(prepared=...)`; None
@@ -256,24 +275,29 @@ def setup_batched(model, params, obs, ref, carry, ref_is_new, qp_params=None,
     otherwise, whatever `params.exact_derivatives` says (the caller
     decides, as `control.wbc.wbc_step_batched` does).
 
-    ref_is_new: a bool or a (B,) bool tensor of any stride."""
+    ref_is_new: a bool or a (B,) bool tensor of any stride.
+
+    stop_after: a section probe (`SECTIONS`; float32, CUDA tensors; on the
+    CPU `setup_batched_host` runs them): only `com` is written."""
     if obs.base_p.device.type == "cpu":
+        if stop_after is not None:
+            raise ValueError("stop_after probes the kernel: CUDA tensors only "
+                             "(setup_batched_host runs them on the CPU)")
         return setup_batched_plain(model, params, obs, ref, carry, ref_is_new,
                                    qp_params, exact_mode)
 
-    def launch(suffix, *args):
-        build.launch("setup", suffix, *args,
+    def launch(entry, suffix, *args):
+        build.launch(entry, suffix, *args,
                      torch.cuda.current_stream(obs.base_p.device).cuda_stream)
+        if entry == "setup":   # a probe is not K3 and counts as no launch
+            LAUNCHES[_counter(exact_mode)] += 1
 
-    out = _run(launch, build.check_inputs, model, params, obs, ref, carry,
-               ref_is_new, qp_params, exact_mode)
-    if obs.q.shape[0] > 0:
-        LAUNCHES[_counter(exact_mode)] += 1
-    return out
+    return _run(launch, build.check_inputs, model, params, obs, ref, carry,
+                ref_is_new, qp_params, exact_mode, stop_after)
 
 
 def setup_batched_host(model, params, obs, ref, carry, ref_is_new,
-                       qp_params=None, reverse=False, exact_mode=False):
+                       qp_params=None, reverse=False, exact_mode=False, stop_after=None):
     """`csrc/setup.cu` compiled as plain C++ and run on CPU tensors, one
     emulated thread per block (`build.host_lib`): the kernel's own
     arithmetic without a GPU, for tests.  `reverse` runs every stage's
@@ -286,11 +310,11 @@ def setup_batched_host(model, params, obs, ref, carry, ref_is_new,
             raise ValueError("setup_batched_host takes CPU tensors")
         return build.check_inputs(ref_t, named, device_type="cpu")
 
-    def launch(suffix, *args):
+    def launch(entry, suffix, *args):
         ctypes.c_int.in_dll(lib, "qwbc_host_reverse").value = int(reverse)
-        err = getattr(lib, f"qwbc_setup_{suffix}")(*args, None)
+        err = getattr(lib, f"qwbc_{entry}_{suffix}")(*args, None)
         if err != 0:
             raise RuntimeError(f"host build of the setup kernel refused its arguments ({err})")
 
     return _run(launch, check, model, params, obs, ref, carry, ref_is_new, qp_params,
-                exact_mode)
+                exact_mode, stop_after)

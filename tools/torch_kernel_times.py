@@ -6,6 +6,7 @@ CUDA card, and a bit-for-bit comparison of two trees' outputs.
         [--kernel admm_zy,admm,polish] [--iters 0,40] [--refine 0,5]
         [--dump DIR]
     python3 tools/torch_kernel_times.py --compare DIR_A DIR_B
+    python3 tools/torch_kernel_times.py --first-k4 5 --kernel none
 
 Builds the tree's kernels, makes the inputs of `chip_smoke.py`
 (`kernel_problem`: recorded walking step 60, the warm iterate and its active
@@ -22,7 +23,18 @@ from its plain version on those inputs.  The kernels and batches:
     B = 4096;
   * polish: the compact and dense polish (K2, K7) at B = 4096, 128, 64 and
     32 (round 1, the rescue, the drop round, the rescue's round 2);
-    `--refine` times other numbers of refinement passes.
+    `--refine` times other numbers of refinement passes;
+  * setup: the fused setup kernel's plain and fused variants (K3) and its
+    exact mode (K3x, fused) at B = 4096, 128 and the ragged 37, on
+    `chip_smoke.setup_args` (recorded step 60, contact switches), and the
+    prepare kernel (K4) at B = 4096; every output of the setup result,
+    the carry updates and the prepared tensors is dumped.
+
+`--first-k4 N` first times the prepare kernel (K4, B = 4096, float32) N
+times in a row, right after the build and before anything else, as
+`chip_smoke.py` times it first (median of 20, host ahead), each reading
+beside the SM clock `nvidia-smi` read just before it: whether a first
+reading after the card idled through the build is the kernel's time.
 
 `--dump DIR` writes every timed call's outputs as `.npy` files (one a
 kernel, dtype, B, count and output); `--compare DIR_A DIR_B` (no card
@@ -63,6 +75,82 @@ def sub_batch(args, b):
                  for a in args)
 
 
+def setup_sub_batch(args, b):
+    """The first b scenarios of the setup kernel's arguments (model, params,
+    obs, ref, carry, ref_is_new), contiguous, the named tuples kept."""
+    def take(x):
+        if isinstance(x, torch.Tensor):
+            return x[:b].contiguous()
+        return type(x)(*map(take, x)) if isinstance(x, tuple) else x
+    return tuple(take(a) for a in args)
+
+
+SETUP_VARIANTS = {   # name: (exact_mode, fused)
+    "setup_batched_plain_variant": (False, False), "setup_batched": (False, True),
+    "setup_batched_exact": (True, True)}
+SETUP_BATCHES = (4096, 128, 37)
+
+
+def setup_runs(chip_smoke, dtype):
+    """(name, B, wrapper call, plain call, output names) of the setup group."""
+    from quadrupedwholebodycontroller_tpu_torch.config import QPSolverParams
+    from quadrupedwholebodycontroller_tpu_torch.ops.kernels import setup as setup_k
+
+    qpp = QPSolverParams()
+    full = chip_smoke.setup_args(4096, dtype, np.random.default_rng(0))
+    for name, (exact, fused) in SETUP_VARIANTS.items():
+        kw = dict(exact_mode=exact, qp_params=qpp if fused else None)
+        outs = chip_smoke.SETUP_OUT if fused else chip_smoke.SETUP_RESULT + chip_smoke.SETUP_CARRY
+        for b in SETUP_BATCHES:
+            a = setup_sub_batch(full, b)
+            yield (name, b,
+                   lambda a=a, kw=kw: chip_smoke.setup_flat(setup_k.setup_batched(*a, **kw)),
+                   lambda a=a, kw=kw: chip_smoke.setup_flat(setup_k.setup_batched_plain(*a, **kw)),
+                   outs)
+    cases, _ = chip_smoke.kernel_problem(4096, dtype, np.random.default_rng(0))
+    _, _, fn, plain, a, kw = next(c for c in cases if c[0] == "prepare_scaled")
+    yield ("prepare_scaled", 4096, lambda: fn(*a, **kw), lambda: plain(*a, **kw),
+           chip_smoke.PREP_OUT)
+
+
+def time_setup(chip_smoke, args, card):
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype)[6:]
+        with torch.no_grad():
+            for name, b, fn, plain, outs in setup_runs(chip_smoke, dtype):
+                got, want = fn(), plain()
+                err = max(float((g.double() - w.double()).abs().max())
+                          for g, w in zip(got, want))
+                ms = chip_smoke.time_ms(fn, reps=args.reps, host_ahead=True)
+                if args.dump:
+                    for o, t in zip(outs, got):
+                        np.save(os.path.join(args.dump, f"{name}_{dt}_B{b}_{o}.npy"),
+                                t.cpu().numpy())
+                print(json.dumps({"label": args.label, "kernel": name, "dtype": dt, "B": b,
+                                  "ms": ms, "max_abs_err_vs_plain": err, "card": card}),
+                      flush=True)
+
+
+def sm_clock():
+    """The SM clock and its maximum in MHz, and the performance state, as
+    nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,pstate", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    return out
+
+
+def first_k4(chip_smoke, args, card):
+    with torch.no_grad():
+        cases, _ = chip_smoke.kernel_problem(4096, torch.float32, np.random.default_rng(0))
+        _, _, fn, _, a, kw = next(c for c in cases if c[0] == "prepare_scaled")
+        for k in range(args.first_k4):
+            clock = sm_clock()
+            ms = chip_smoke.time_ms(lambda: fn(*a, **kw), host_ahead=True)
+            print(json.dumps({"label": args.label, "kernel": "prepare_scaled", "reading": k,
+                              "ms": ms, "sm_clock_before": clock, "card": card}), flush=True)
+
+
 def compare(dir_a, dir_b):
     names = sorted(set(os.listdir(dir_a)) & set(os.listdir(dir_b)))
     if not names:
@@ -94,7 +182,7 @@ def main():
     ap.add_argument("--label", default="tree")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--kernel", default="admm_zy,admm,polish",
-                    help="comma-separated, of " + ", ".join(KERNELS))
+                    help="comma-separated, of " + ", ".join(KERNELS) + ", setup")
     ap.add_argument("--iters", default=None,
                     help="comma-separated ADMM iteration counts of admm_zy to time "
                          "instead of the main path's (0: load and epilogue alone)")
@@ -102,6 +190,8 @@ def main():
                     help="comma-separated refinement passes of the polish to time "
                          "instead of the main path's (a diagnosis: the cost of one pass)")
     ap.add_argument("--dump", default=None, help="write the outputs as .npy here")
+    ap.add_argument("--first-k4", type=int, default=0,
+                    help="time K4 this many times first, right after the build")
     ap.add_argument("--compare", nargs=2, default=None, metavar=("DIR_A", "DIR_B"))
     args = ap.parse_args()
     if args.compare:
@@ -120,8 +210,12 @@ def main():
                       "ptxas": [ln.strip() for ln in build.build_log.splitlines()
                                 if "registers" in ln or "spill" in ln or "==" in ln
                                 or "error" in ln.lower()]}), flush=True)
+    if args.first_k4:
+        first_k4(chip_smoke, args, card)
     if args.dump:
         os.makedirs(args.dump, exist_ok=True)
+    if "setup" in groups:
+        time_setup(chip_smoke, args, card)
     for dtype in (torch.float32, torch.float64):
         with torch.no_grad():
             cases, _ = chip_smoke.kernel_problem(4096, dtype, np.random.default_rng(0))
