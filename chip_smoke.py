@@ -10,9 +10,9 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  It
      card, at the main path's shapes (B = 4096, n = 42, m = 70) on inputs
      from a recorded walking step, each output to its own tolerance, in
      float32 and float64, plus a ragged B = 37 (the setup kernel's exact
-     mode, K3x, also on a step far from any contact switch); K1, K2, K3 and
-     K3x must repeat a launch bit for bit; K1 and K2 are also timed at the
-     main path's sub-batches, K1 without iterations (its load and epilogue),
+     mode, K3x, also on a step far from any contact switch); K1, K2, K7, K3
+     and K3x must repeat a launch bit for bit; K1, K2 and K7 are also timed
+     at their paths' sub-batches, K1 without iterations (its load and epilogue),
      and K1's row says which instantiation ran and what ptxas made of it;
      the setup kernel's section probes (`stop_after`) time its sections,
   3. drives the paths of the batched 400 Hz control cycle
@@ -22,7 +22,9 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  It
      polish) over all 200 steps, the earlier path (`"torch"`: tensor-code
      setup -> prepare kernel -> ADMM -> polish) and the sigma path
      (`QPSolverParams(sigma=1e-6)`: the x-space ADMM) over steps 0..69, which
-     hold a contact switch, each held against the main path's torques,
+     hold a contact switch, each held against the main path's torques; each
+     path's polish (K2, K7) and x-space ADMM (K5) launches are counted by
+     the solver stage that makes them,
   4. solves the walk's QPs of steps 30..69 through the generic solve
      (`ops.qp.solve_batched` without a closed-form H^-1: the dense-H polish)
      with a carried cache at sigma = 0 and 1e-6, against the main path's
@@ -250,7 +252,7 @@ REPLACES = {
     K8: _JAX + "ns_kernel.py:126",
 }
 _CSRC = "quadrupedwholebodycontroller_tpu_torch/csrc/"
-SOURCES = {K4: _CSRC + "prepare.cu", K1: _CSRC + "admm_zy.cu", K2: _CSRC + "polish_compact.cu",
+SOURCES = {K4: _CSRC + "prepare.cu", K1: _CSRC + "admm_zy.cu", K2: _CSRC + "polish.cu",
            K3: _CSRC + "setup.cu", K5: _CSRC + "admm.cu", K6: _CSRC + "admm.cu",
            K7: _CSRC + "polish.cu", K8: _CSRC + "ns_warm.cu", K3X: _CSRC + "setup.cu"}
 SIGMA = 1e-6     # the tuned proximal weight of the sigma path
@@ -706,12 +708,12 @@ def check_kernels():
                                                          host_ahead=True)
                 rows[name]["bound_ms_plain_variant"] = setup_bytes(
                     args, fn(*args, **kw0), exact=name == K3X) / HBM_BYTES_PER_S * 1e3
-            if name == K2:
-                # the sub-batches of the main path: the rescue, the drop
-                # round, the rescue's round 2
+            if name in (K2, K7):
+                # the sub-batches of the main and the generic path: the
+                # rescue, the drop round, the rescue's round 2
                 for b in (128, 64, 32):
                     ab = sub_batch(args, b)
-                    rows[K2][f"ms_B{b}"] = time_ms(lambda: fn(*ab, **kw), host_ahead=True)
+                    rows[name][f"ms_B{b}"] = time_ms(lambda: fn(*ab, **kw), host_ahead=True)
             if name == K1:
                 # the rescue's sub-batch; the load and the epilogue alone; the
                 # instantiation the shape takes and what ptxas made of it
@@ -724,7 +726,7 @@ def check_kernels():
                 rows[K1]["variant"] = [v for v, c in admm_zy.VARIANT_LAUNCHES.items()
                                        if c != before[v]]
                 rows[K1]["ptxas"] = build.ptxas_report("admm_zy.cu")
-            if name in (K3, K3X, K2, K1):
+            if name in (K3, K3X, K2, K7, K1):
                 # the same launch again: a race between threads would rarely
                 # repeat bit for bit
                 again = fn(*args, **kw)
@@ -859,6 +861,88 @@ def step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs):
     }
 
 
+class StageSpy:
+    """Counts the launches of the polish (K2 with a compact H, K7 with a
+    dense one) and of the x-space ADMM with its epilogue (K5) by the solver
+    stage that makes them, with their batch sizes, while installed (a
+    context manager around a counted run; the spies keep references only:
+    no device work).  Polish: the first of a solve is round 1, a later one
+    the drop round; inside the rescue the first of a stage is its round 1,
+    a later one its round 2.  K5: the first of a solve is round 1, a later
+    one the cold start's extra iterations; inside the rescue, the rescue.
+    `on_solve(data, out)` sees every solve."""
+
+    def __init__(self, on_solve=None):
+        self.stages = {K2: {}, K7: {}, K5: {}}
+        self.where = {"polish": 0, "admm": 0, "rescue": None}
+        self.on_solve = on_solve
+
+    def _count(self, kernel, stage, batch):
+        row = self.stages[kernel].setdefault(stage, {"launches": 0, "batch_sizes": {}})
+        row["launches"] += 1
+        row["batch_sizes"][batch] = row["batch_sizes"].get(batch, 0) + 1
+
+    def __enter__(self):
+        self.orig = (qp.solve_batched, qp._rescue_core, polish.polish_solve,
+                     admm.admm_iterations_res)
+        solve, core, pol, k5 = self.orig
+        where = self.where
+
+        def solve_spy(data, *a, **k):
+            where["polish"] = where["admm"] = 0
+            out = solve(data, *a, **k)
+            if self.on_solve is not None:
+                self.on_solve(data, out)
+            return out
+
+        def core_spy(*a, **k):
+            where["rescue"] = 0
+            try:
+                return core(*a, **k)
+            finally:
+                where["rescue"] = None
+
+        def polish_spy(H, *a, **k):
+            if where["rescue"] is None:
+                stage = "round1" if where["polish"] == 0 else "drop_round"
+                where["polish"] += 1
+            else:
+                stage = "rescue" if where["rescue"] == 0 else "rescue_round2"
+                where["rescue"] += 1
+            self._count(K2 if isinstance(H, tuple) else K7, stage, a[2].shape[0])
+            return pol(H, *a, **k)
+
+        def k5_spy(Kinv, *a, **k):
+            if where["rescue"] is None:
+                stage = "round1" if where["admm"] == 0 else "cold_start"
+                where["admm"] += 1
+            else:
+                stage = "rescue"
+            self._count(K5, stage, Kinv.shape[0])
+            return k5(Kinv, *a, **k)
+
+        qp.solve_batched, qp._rescue_core = solve_spy, core_spy
+        polish.polish_solve, admm.admm_iterations_res = polish_spy, k5_spy
+        return self
+
+    def __exit__(self, *exc):
+        (qp.solve_batched, qp._rescue_core, polish.polish_solve,
+         admm.admm_iterations_res) = self.orig
+
+    def by_stage(self, tag, launches):
+        """{"k2_launches_by_stage": ..., and k7's and k5's where they ran};
+        raises unless each kernel's stages sum to its launch count."""
+        out = {}
+        for k, name in ((K2, "k2"), (K7, "k7"), (K5, "k5")):
+            total = sum(r["launches"] for r in self.stages[k].values())
+            if total != launches[k]:
+                raise AssertionError(f"{tag}: {k} by stage {self.stages[k]}, "
+                                     f"{launches[k]} launches")
+            if k == K2 or total:
+                out[f"{name}_launches_by_stage"] = self.stages[k]
+        return out
+
+
 def drive_path(path: str, offsets):
     """One path of the control cycle at B = 4096 in float32, the launch
     counts zeroed just before and read just after.  Returns (launches,
@@ -870,38 +954,9 @@ def drive_path(path: str, offsets):
     run_walk(BATCH, qpp, offsets, steps=3, setup_backend=backend, cparams=cp)
     n_steps = TRAJ["base_R"].shape[0] if spec["steps"] is None else spec["steps"]
     kept, last = [], {}
-    orig_solve, orig_polish, orig_core = qp.solve_batched, polish.polish_solve, qp._rescue_core
-    # K2's launches by the solver stage that makes them: the first polish of
-    # a solve is round 1, a later one the drop round; inside the rescue the
-    # first polish of a stage is its round 1, a later one its round 2
-    k2_stages, where = {}, {"solve": 0, "rescue": None}
 
-    def solve_spy(data, *a, **k):           # keeps references only: no device work
-        where["solve"] = 0
-        out = orig_solve(data, *a, **k)
+    def on_solve(data, out):               # keeps references only: no device work
         last["data"], last["state"] = data, out[0]
-        return out
-
-    def core_spy(*a, **k):
-        where["rescue"] = 0
-        try:
-            return orig_core(*a, **k)
-        finally:
-            where["rescue"] = None
-
-    def polish_spy(H, *a, **k):
-        if isinstance(H, tuple):           # compact H: K2
-            if where["rescue"] is None:
-                stage = "round1" if where["solve"] == 0 else "drop_round"
-                where["solve"] += 1
-            else:
-                stage = "rescue" if where["rescue"] == 0 else "rescue_round2"
-                where["rescue"] += 1
-            row = k2_stages.setdefault(stage, {"launches": 0, "batch_sizes": {}})
-            b = a[2].shape[0]
-            row["launches"] += 1
-            row["batch_sizes"][b] = row["batch_sizes"].get(b, 0) + 1
-        return orig_polish(H, *a, **k)
 
     def record(t, out):
         if t < COMPARE_STEPS:
@@ -912,16 +967,10 @@ def drive_path(path: str, offsets):
     kernels.reset_counts()
     qp.HOST_SYNCS = 0
     torch.cuda.reset_peak_memory_stats()
-    qp.solve_batched, polish.polish_solve, qp._rescue_core = solve_spy, polish_spy, core_spy
-    try:
+    with StageSpy(on_solve) as spy:
         ms, kkts, flagged = run_walk(BATCH, qpp, offsets, record, n_steps, backend, cp)
-    finally:
-        qp.solve_batched, polish.polish_solve, qp._rescue_core = (
-            orig_solve, orig_polish, orig_core)
     launches = kernels.launch_counts()
-    if sum(r["launches"] for r in k2_stages.values()) != launches[K2]:
-        raise AssertionError(f"the {path} path: K2 by stage {k2_stages}, {launches[K2]} "
-                             "launches")
+    by_stage = spy.by_stage(f"the {path} path", launches)
     syncs = qp.HOST_SYNCS
     n_flag = check_run(f"the {path} path", launches, kernels.plain_counts(), kkts, flagged,
                        spec["runs"], spec["never"], n_steps, spec.get("quality", True))
@@ -934,7 +983,7 @@ def drive_path(path: str, offsets):
                "rescue_batch": qpp.rescue_batch,
                "quality_asserted": spec.get("quality", True),
                **step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs),
-               "k2_launches_by_stage": k2_stages}
+               **by_stage}
     if not summary["quality_asserted"]:
         # where the burst sits: flagged scenarios per step, on the steps
         # that have any
@@ -1089,8 +1138,10 @@ def generic_path(rec, sigma):
     kernels.reset_counts()
     qp.HOST_SYNCS = 0
     torch.cuda.reset_peak_memory_stats()
-    ms, kkts, flagged, worst, n_cert, worst_kkt = run(len(rec))
+    with StageSpy() as spy:
+        ms, kkts, flagged, worst, n_cert, worst_kkt = run(len(rec))
     launches = kernels.launch_counts()
+    by_stage = spy.by_stage(f"the generic path (sigma {sigma})", launches)
     admm_k, other = (K5, K1) if sigma else (K1, K5)
     n_flag = check_run(f"the generic path (sigma {sigma})", launches, kernels.plain_counts(),
                        kkts, flagged, (K7, admm_k), (K2, other, K3), len(rec))
@@ -1104,6 +1155,7 @@ def generic_path(rec, sigma):
         "dense_vs_compact_x": {"max_share_of_scale": worst, "tol": X_TOL,
                                "certified_scenario_steps": n_cert,
                                "max_share_of_scale_kkt_only": worst_kkt},
+        **by_stage,
     }
 
 
@@ -1228,9 +1280,9 @@ BURST_STEPS = 200      # the window that holds the closed loop's burst (step 186
 
 
 # the exact closed loop's asserted solver: the rescue sized to the burst
-# (`rescue_batch` = 2048, the recipe of the reference's record, PERF.md Part
-# 2 "exact_derivatives", which there itself left up to 13 scenarios a step
-# above the threshold), and its second polish round too.  Each rescue stage
+# (`rescue_batch` = 2048, the recipe of the reference's record,
+# PERF_JAX_TPU.md "exact_derivatives", which there itself left up to 13
+# scenarios a step above the threshold), and its second polish round too.  Each rescue stage
 # polishes its whole sub-batch once; round 2 runs only on the
 # `rescue_round2_batch` worst scenarios still above the threshold (32 by
 # default: the compacted round 2 of `ops.qp._rescue_core`, as the JAX

@@ -20,8 +20,7 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = ("prepare.cu", "admm_zy.cu", "admm.cu", "polish.cu", "polish_compact.cu",
-           "setup.cu", "ns_warm.cu")
+SOURCES = ("prepare.cu", "admm_zy.cu", "admm.cu", "polish.cu", "setup.cu", "ns_warm.cu")
 HEADERS = ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh")
 # the objects of the device build: every source once, and setup.cu a second
 # time with its section probes alone (see there), compiled beside the others
@@ -29,7 +28,7 @@ OBJECTS = tuple((name, name[:-3], ()) for name in SOURCES) + (
     ("setup.cu", "setup_sections", ("-DQWBC_SETUP_SECTIONS",)),)
 # sources written with the stage macros of common.cuh alone, which also
 # compile as plain C++ (see `host_lib`)
-HOST_SOURCES = ("setup.cu", "ns_warm.cu", "polish_compact.cu", "admm_zy.cu")
+HOST_SOURCES = ("setup.cu", "ns_warm.cu", "polish.cu", "admm_zy.cu")
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -146,9 +145,6 @@ def _declare(lib) -> None:
         fn.argtypes = [_PTR] * 20 + [i, i, i, i, i, real, real, real, _PTR]
         fn.restype = i
         _declare_polish(lib, suffix, real)
-        fn = getattr(lib, f"qwbc_polish_dense_{suffix}")
-        fn.argtypes = [_PTR] * 15 + [i, i, i, i, real, _PTR]
-        fn.restype = i
         _declare_setup(lib, suffix, real)
         _declare_ns_warm(lib, suffix)
     lib.qwbc_error_string.argtypes = [i]
@@ -190,9 +186,15 @@ def _declare_polish(lib, suffix, real) -> None:
     # pointers, B, n, m, k, start, refine, reg, stream
     fn.argtypes = [_PTR] * 17 + [i, i, i, i, i, i, real, _PTR]
     fn.restype = i
-    # the compact kernel's shared memory in words, from n, m, k
+    fn = getattr(lib, f"qwbc_polish_dense_{suffix}")
+    # pointers, B, n, m, refine, reg, stream
+    fn.argtypes = [_PTR] * 15 + [i, i, i, i, real, _PTR]
+    fn.restype = i
+    # a block's shared memory in words: compact from n, m, k; dense from n, m
     lib.qwbc_polish_compact_words.argtypes = [i, i, i]
     lib.qwbc_polish_compact_words.restype = ctypes.c_size_t
+    lib.qwbc_polish_dense_words.argtypes = [i, i]
+    lib.qwbc_polish_dense_words.restype = ctypes.c_size_t
 
 
 def _declare_ns_warm(lib, suffix) -> None:

@@ -16,10 +16,10 @@ H^-1 come either both dense (B, n, n) or both compact: (diag (B, n) with
 zeros on the block rows, blk (B, k, k), start), a diagonal plus one dense
 block at rows start:start+k.
 
-On a CUDA tensor the wrapper launches `csrc/polish_compact.cu` (compact)
-or `csrc/polish.cu` (dense); on a CPU tensor it takes `polish_solve_plain`.
-`polish_solve_host` runs `csrc/polish_compact.cu` compiled as plain C++
-(tests only).
+On a CUDA tensor the wrapper launches `csrc/polish.cu`, one body
+instantiated for each form, which clips l and u to +-1e20 itself; on a CPU
+tensor it takes `polish_solve_plain`.  `polish_solve_host` runs the same
+source compiled as plain C++ (tests only).
 """
 from __future__ import annotations
 
@@ -89,32 +89,40 @@ def polish_solve_plain(H, Hinv, Sinv, A, da, g, b, l, u,
     return x, y, z, pr, du, sv
 
 
-def _compact_args(H, Hinv, Sinv, A, da, g, b, l, u, lib, device_type):
-    """Check the compact kernel's inputs (device and host builds, `lib` the
-    loaded library); returns (dtype suffix, pointer tensors in the
+def _kernel_args(H, Hinv, Sinv, A, da, g, b, l, u, lib, device_type):
+    """Check the kernel's inputs (device and host builds, `lib` the loaded
+    library); returns (launcher name, dtype suffix, pointer tensors in the
     launcher's order, shape args)."""
     B, m, n = A.shape
-    hd, hblk, start = H
-    hid, hiblk, istart = Hinv
-    if start != istart or hblk.shape != hiblk.shape:
-        raise ValueError("H and Hinv must share one block layout")
-    k = hblk.shape[-1]
-    suffix = build.check_inputs(A, {
-        "H.diag": (hd, (B, n)), "H.blk": (hblk, (B, k, k)),
-        "Hinv.diag": (hid, (B, n)), "Hinv.blk": (hiblk, (B, k, k)),
-        "Sinv": (Sinv, (B, m, m)), "A": (A, (B, m, n)), "da": (da, (B, m)),
-        "g": (g, (B, n)), "b": (b, (B, m)), "l": (l, (B, m)), "u": (u, (B, m)),
-    }, device_type)
-    if not (0 <= start and start + k <= n):
-        raise ValueError(f"polish kernel takes a block inside n; got "
-                         f"n={n}, start={start}, k={k}")
-    smem = lib.qwbc_polish_compact_words(n, m, k) * A.element_size()
+    common = {"Sinv": (Sinv, (B, m, m)), "A": (A, (B, m, n)), "da": (da, (B, m)),
+              "g": (g, (B, n)), "b": (b, (B, m)), "l": (l, (B, m)), "u": (u, (B, m))}
+    if _form(H, Hinv) == "dense":
+        suffix = build.check_inputs(A, {"H": (H, (B, n, n)), "Hinv": (Hinv, (B, n, n)),
+                                        **common}, device_type)
+        words, what = lib.qwbc_polish_dense_words(n, m), f"n={n}, m={m}"
+        name, ins, shape_args = "polish_dense", (H, Hinv), (B, n, m)
+    else:
+        hd, hblk, start = H
+        hid, hiblk, istart = Hinv
+        if start != istart or hblk.shape != hiblk.shape:
+            raise ValueError("H and Hinv must share one block layout")
+        k = hblk.shape[-1]
+        suffix = build.check_inputs(A, {
+            "H.diag": (hd, (B, n)), "H.blk": (hblk, (B, k, k)),
+            "Hinv.diag": (hid, (B, n)), "Hinv.blk": (hiblk, (B, k, k)), **common},
+            device_type)
+        if not (0 <= start and start + k <= n):
+            raise ValueError(f"polish kernel takes a block inside n; got "
+                             f"n={n}, start={start}, k={k}")
+        words, what = lib.qwbc_polish_compact_words(n, m, k), f"n={n}, m={m}, k={k}"
+        name, ins, shape_args = "polish", (hd, hblk, hid, hiblk), (B, n, m, k, int(start))
+    smem = words * A.element_size()
     if smem > build.SMEM_BYTES:
         raise ValueError(
-            f"compact polish kernel holds Sinv, A, the H blocks and its vectors "
-            f"in shared memory: n={n}, m={m}, k={k} in {A.dtype} needs {smem} "
-            f"bytes, more than {build.SMEM_BYTES}")
-    return suffix, (hd, hblk, hid, hiblk, Sinv, A, da, g, b, l, u), (B, n, m, k, int(start))
+            f"polish kernel holds Sinv, A, H, H^-1 and its vectors in shared "
+            f"memory: {what} in {A.dtype} needs {smem} bytes, more than "
+            f"{build.SMEM_BYTES}")
+    return name, suffix, (*ins, Sinv, A, da, g, b, l, u), shape_args
 
 
 def polish_solve(H, Hinv, Sinv, A, da, g, b, l, u, *, refine: int, reg: float):
@@ -128,26 +136,14 @@ def polish_solve(H, Hinv, Sinv, A, da, g, b, l, u, *, refine: int, reg: float):
         return polish_solve_plain(H, Hinv, Sinv, A, da, g, b, l, u,
                                   refine=refine, reg=reg)
     B, m, n = A.shape
-    l = torch.clamp(l, -_BIG, _BIG)
-    u = torch.clamp(u, -_BIG, _BIG)
-    if form == "compact":
-        suffix, ins, shape_args = _compact_args(H, Hinv, Sinv, A, da, g, b, l, u,
-                                                build.lib(), "cuda")
-    else:
-        suffix = build.check_inputs(A, {
-            "H": (H, (B, n, n)), "Hinv": (Hinv, (B, n, n)),
-            "Sinv": (Sinv, (B, m, m)), "A": (A, (B, m, n)), "da": (da, (B, m)),
-            "g": (g, (B, n)), "b": (b, (B, m)), "l": (l, (B, m)), "u": (u, (B, m))})
-        if max(n, m) > 1024:
-            raise ValueError(f"polish kernel takes n, m <= 1024; got n={n}, m={m}")
-        ins, shape_args = (H, Hinv, Sinv, A, da, g, b, l, u), (B, n, m)
+    name, suffix, ins, shape_args = _kernel_args(H, Hinv, Sinv, A, da, g, b, l, u,
+                                                 build.lib(), "cuda")
     new = lambda *shape: torch.empty(shape, dtype=A.dtype, device=A.device)
     outs = (new(B, n), new(B, m), new(B, m), new(B), new(B), new(B))
     if B == 0:
         return outs
     build.launch(
-        "polish" if form == "compact" else "polish_dense", suffix,
-        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+        name, suffix, *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
         *shape_args, int(refine), float(reg),
         torch.cuda.current_stream(A.device).cuda_stream,
     )
@@ -157,21 +153,20 @@ def polish_solve(H, Hinv, Sinv, A, da, g, b, l, u, *, refine: int, reg: float):
 
 def polish_solve_host(H, Hinv, Sinv, A, da, g, b, l, u, *, refine: int, reg: float,
                       reverse: bool = False):
-    """`csrc/polish_compact.cu` compiled as plain C++ and run on CPU tensors
-    (compact H and H^-1 only), one emulated thread per block
+    """`csrc/polish.cu` compiled as plain C++ and run on CPU tensors
+    (compact or dense H and H^-1), one emulated thread per block
     (`build.host_lib`); `reverse` runs every stage's items in falling
     order.  Needs a C++ compiler; counts as no launch."""
     B, m, n = A.shape
-    l = torch.clamp(l, -_BIG, _BIG)
-    u = torch.clamp(u, -_BIG, _BIG)
     lib = build.host_lib()
-    suffix, ins, shape_args = _compact_args(H, Hinv, Sinv, A, da, g, b, l, u, lib, "cpu")
+    name, suffix, ins, shape_args = _kernel_args(H, Hinv, Sinv, A, da, g, b, l, u, lib,
+                                                 "cpu")
     new = lambda *shape: torch.empty(shape, dtype=A.dtype)
     outs = (new(B, n), new(B, m), new(B, m), new(B), new(B), new(B))
     ctypes.c_int.in_dll(lib, "qwbc_host_reverse").value = int(reverse)
-    err = getattr(lib, f"qwbc_polish_{suffix}")(
+    err = getattr(lib, f"qwbc_{name}_{suffix}")(
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
         *shape_args, int(refine), float(reg), None)
     if err != 0:
-        raise RuntimeError(f"host build of the compact polish kernel failed ({err})")
+        raise RuntimeError(f"host build of the polish kernel failed ({err})")
     return outs

@@ -52,8 +52,7 @@ def test_port_has_the_expected_modules():
                  "sim/scenario.py", "sim/rollout.py"):
         assert want in rel, want
     for src in ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh", "prepare.cu",
-                "admm_zy.cu", "admm.cu", "polish.cu", "polish_compact.cu", "setup.cu",
-                "ns_warm.cu"):
+                "admm_zy.cu", "admm.cu", "polish.cu", "setup.cu", "ns_warm.cu"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
     assert os.path.exists(os.path.join(PORT, "models", "data", "anymal_d.json"))
 
@@ -84,7 +83,7 @@ def test_admm_kernels_share_one_epilogue():
     assert '#include "admm_epilogue.cuh"' in text and "admm_epilogue(" in text
     assert "kkt_epilogue(" not in text and "Hs + bn * n" not in text
     assert "void cert_finish(" in read("common.cuh")
-    for src in ("admm_zy.cu", "polish_compact.cu"):
+    for src in ("admm_zy.cu", "polish.cu"):
         text = read(src)
         assert "cert_warp_maxima(" in text and "cert_finish(" in text
         assert "kkt_epilogue(" not in text and "block_max(" not in text

@@ -1,5 +1,5 @@
-"""The compact-H polish kernel's own source, `csrc/polish_compact.cu`,
-compiled as plain C++ (one emulated thread per block, the items of every
+"""The compact-H polish kernel's source, `csrc/polish.cu` in its compact
+form, compiled as plain C++ (one emulated thread per block, the items of every
 stage in rising and in falling order: `polish.polish_solve_host`) against
 `polish.polish_solve_plain`, which `tests/test_torch_kernels_plain.py`
 holds to the JAX package's Pallas kernel.
@@ -39,7 +39,7 @@ from tests.test_torch_kernels_plain import K, START, _problem
 
 pytestmark = pytest.mark.skipif(
     shutil.which("g++") is None and shutil.which("c++") is None,
-    reason="needs a C++ compiler to build csrc/polish_compact.cu for the CPU")
+    reason="needs a C++ compiler to build csrc/polish.cu for the CPU")
 
 B_WALK = 3
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}

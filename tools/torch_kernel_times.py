@@ -4,7 +4,7 @@ CUDA card, and a bit-for-bit comparison of two trees' outputs.
 
     python3 tools/torch_kernel_times.py [--label tree] [--reps 50]
         [--kernel admm_zy,admm,polish] [--iters 0,40] [--refine 0,5]
-        [--dump DIR]
+        [--case main,resolving] [--batches 4096,128,37] [--dump DIR]
     python3 tools/torch_kernel_times.py --compare DIR_A DIR_B
     python3 tools/torch_kernel_times.py --first-k4 5 --kernel none
 
@@ -24,6 +24,10 @@ from its plain version on those inputs.  The kernels and batches:
   * polish: the compact and dense polish (K2, K7) at B = 4096, 128, 64 and
     32 (round 1, the rescue, the drop round, the rescue's round 2);
     `--refine` times other numbers of refinement passes;
+  * `--case` takes other cases of `chip_smoke.kernel_problem` besides (or
+    instead of) "main" (e.g. "resolving": the same problems far from
+    converged), `--batches` other batch sizes (e.g. the ragged 37) for
+    every kernel group but setup;
   * setup: the fused setup kernel's plain and fused variants (K3) and its
     exact mode (K3x, fused) at B = 4096, 128 and the ragged 37, on
     `chip_smoke.setup_args` (recorded step 60, contact switches), and the
@@ -177,6 +181,12 @@ def counts(group, kw, args):
     return key, [kw[key]]
 
 
+def dump_name(name, case, dt, b, key, v, o):
+    """File name of one dumped output; the main case keeps the short form."""
+    tag = name if case == "main" else f"{name}_{case}"
+    return f"{tag}_{dt}_B{b}_{key}{v}_{o}.npy"
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="tree")
@@ -189,6 +199,10 @@ def main():
     ap.add_argument("--refine", default=None,
                     help="comma-separated refinement passes of the polish to time "
                          "instead of the main path's (a diagnosis: the cost of one pass)")
+    ap.add_argument("--case", default="main",
+                    help="comma-separated cases of chip_smoke.kernel_problem to time")
+    ap.add_argument("--batches", default=None,
+                    help="comma-separated batch sizes instead of each group's own")
     ap.add_argument("--dump", default=None, help="write the outputs as .npy here")
     ap.add_argument("--first-k4", type=int, default=0,
                     help="time K4 this many times first, right after the build")
@@ -201,7 +215,7 @@ def main():
     import chip_smoke
     from quadrupedwholebodycontroller_tpu_torch.ops.kernels import build
 
-    groups = args.kernel.split(",")
+    groups, cases_wanted = args.kernel.split(","), args.case.split(",")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -221,10 +235,12 @@ def main():
             cases, _ = chip_smoke.kernel_problem(4096, dtype, np.random.default_rng(0))
             for name, case, fn, plain, a, kw in cases:
                 group = next((g for g in groups if name in KERNELS.get(g, ())), None)
-                if case != "main" or group is None:
+                if case not in cases_wanted or group is None:
                     continue
                 key, values = counts(group, kw, args)
-                for b, v in ((b, v) for b in BATCHES[group] for v in values):
+                batches = [int(b) for b in args.batches.split(",")] if args.batches \
+                    else BATCHES[group]
+                for b, v in ((b, v) for b in batches for v in values):
                     ab, kr = sub_batch(a, b), dict(kw, **{key: v})
                     got = fn(*ab, **kr)
                     want = plain(*ab, **kr)
@@ -235,10 +251,11 @@ def main():
                     dt = str(dtype)[6:]
                     if args.dump:
                         for o, t in zip(OUTPUTS[name].split(), got):
-                            np.save(os.path.join(args.dump, f"{name}_{dt}_B{b}_{key}{v}_{o}.npy"),
+                            np.save(os.path.join(args.dump,
+                                                 dump_name(name, case, dt, b, key, v, o)),
                                     t.cpu().numpy())
-                    print(json.dumps({"label": args.label, "kernel": name, "dtype": dt,
-                                      "B": b, key: v, "ms": ms,
+                    print(json.dumps({"label": args.label, "kernel": name, "case": case,
+                                      "dtype": dt, "B": b, key: v, "ms": ms,
                                       "max_abs_err_vs_plain": err, "card": card}),
                           flush=True)
 
