@@ -714,19 +714,26 @@ def check_kernels():
                 for b in (128, 64, 32):
                     ab = sub_batch(args, b)
                     rows[name][f"ms_B{b}"] = time_ms(lambda: fn(*ab, **kw), host_ahead=True)
-            if name == K1:
-                # the rescue's sub-batch; the load and the epilogue alone; the
+            if name in (K1, K5, K6):
+                # the rescue's sub-batch (K5's held to the table too) and a
+                # ragged one; the load and the epilogue alone; the
                 # instantiation the shape takes and what ptxas made of it
-                ab = sub_batch(args, 128)
-                rows[K1]["ms_B128"] = time_ms(lambda: fn(*ab, **kw), host_ahead=True)
+                for b in (128, 37):
+                    ab = sub_batch(args, b)
+                    if name == K5 and b == 128:
+                        rows[K5]["main_f32_B128"] = compare(
+                            name, case, fn, plain, ab, kw, torch.float32)[0]
+                    rows[name][f"ms_B{b}"] = time_ms(lambda: fn(*ab, **kw), host_ahead=True)
                 kw0 = dict(kw, iters=0)
-                rows[K1]["ms_iters0"] = time_ms(lambda: fn(*args, **kw0), host_ahead=True)
-                before = dict(admm_zy.VARIANT_LAUNCHES)
+                rows[name]["ms_iters0"] = time_ms(lambda: fn(*args, **kw0), host_ahead=True)
+                mod = admm_zy if name == K1 else admm
+                before = dict(mod.VARIANT_LAUNCHES)
                 fn(*args, **kw)
-                rows[K1]["variant"] = [v for v, c in admm_zy.VARIANT_LAUNCHES.items()
-                                       if c != before[v]]
-                rows[K1]["ptxas"] = build.ptxas_report("admm_zy.cu")
-            if name in (K3, K3X, K2, K7, K1):
+                rows[name]["variant"] = [v for v, c in mod.VARIANT_LAUNCHES.items()
+                                         if c != before[v]]
+                rows[name]["ptxas"] = build.ptxas_report(
+                    "admm_zy.cu" if name == K1 else "admm.cu")
+            if name in (K3, K3X, K2, K7, K1, K5, K6):
                 # the same launch again: a race between threads would rarely
                 # repeat bit for bit
                 again = fn(*args, **kw)
@@ -846,6 +853,12 @@ def step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs):
     k1_variants = dict(admm_zy.VARIANT_LAUNCHES)
     if sum(k1_variants.values()) != launches[K1] or k1_variants["shared_memory"]:
         raise AssertionError(f"K1 by instantiation {k1_variants}, {launches[K1]} launches")
+    # and so do K5's and K6's
+    k5_variants = dict(admm.VARIANT_LAUNCHES)
+    if sum(k5_variants.values()) != launches[K5] + launches[K6] \
+            or k5_variants["shared_memory"]:
+        raise AssertionError(f"K5/K6 by instantiation {k5_variants}, "
+                             f"{launches[K5] + launches[K6]} launches")
     return {
         "steps": n_steps, "batch": BATCH, "dtype": "float32",
         "ms_per_step_median": med,
@@ -856,6 +869,7 @@ def step_summary(ms, kkts, flagged, n_flag, launches, n_steps, syncs):
         "flagged_scenario_steps": n_flag,
         "launches_per_step": {k: v / n_steps for k, v in launches.items()},
         "k1_launches_by_variant": k1_variants,
+        "k5_k6_launches_by_variant": k5_variants,
         "host_syncs_per_step": syncs / n_steps,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
     }

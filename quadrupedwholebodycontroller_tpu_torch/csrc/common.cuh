@@ -247,8 +247,9 @@ __device__ __forceinline__ void async_load_matrix(T* dst, const T* __restrict__ 
 }
 
 // The certificate of an unscaled primal/dual pair (relative KKT residuals,
-// OSQP normalization, and the sign violation), as kkt_epilogue computes it,
-// with its maxima reduced per warp in one pass.  Each thread fills the
+// OSQP normalization, and the sign violation; the plain versions'
+// `kkt_epilogue` in ops/kernels/admm_zy.py), with its maxima reduced per
+// warp in one pass.  Each thread fills the
 // CERT_MAXIMA values of its item (zeros where it has none): a constraint
 // row its finite bounds, |Ax| and |Ax - clip(Ax)| (cert_row_terms), a
 // variable |Hx|, |A^T y|, |g| and |Hx + g + A^T y| (cert_var_terms); every
@@ -257,7 +258,8 @@ __device__ __forceinline__ void async_load_matrix(T* dst, const T* __restrict__ 
 // warps of the block).  After a barrier the first warp alone calls
 // cert_finish: the scales, the sign violation over the rows from ax, y
 // (unscaled), lo and uo in shared memory, and pr[b], du[b], sv[b].  The
-// maxima are order-free, so the result is kkt_epilogue's bit for bit.
+// maxima are order-free, so the result is the same bit for bit however the
+// items are spread over warps.
 constexpr int CERT_MAXIMA = 7;
 
 template <typename T>
@@ -330,91 +332,5 @@ __device__ __forceinline__ void load_matrix(T* dst, const T* __restrict__ src,
     dst[r * stride + c] = src[idx];
   }
 }
-
-#ifdef __CUDACC__
-// Block-wide NaN-propagating max; every thread of the block must call it.
-// `scratch` holds one value per warp.  Returns the max to all threads.
-template <typename T>
-__device__ T block_max(T v, T* scratch) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = nan_max(v, __shfl_down_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();                 // previous readers of scratch are done
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  T r = scratch[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) r = nan_max(r, scratch[i]);
-  return r;
-}
-
-#endif  // __CUDACC__
-
-// out_row = sum_j M[row][j] * v[j]   (M in shared memory, v in shared memory)
-template <typename T>
-__device__ __forceinline__ T row_dot(const T* M, int stride, int row,
-                                     const T* v, int cols) {
-  T acc = T(0);
-  const T* r = M + row * stride;
-  for (int j = 0; j < cols; ++j) acc += r[j] * v[j];
-  return acc;
-}
-
-// out_col = sum_i M[i][col] * w[i]   (the transposed product)
-template <typename T>
-__device__ __forceinline__ T col_dot(const T* M, int stride, int col,
-                                     const T* w, int rows) {
-  T acc = T(0);
-  for (int i = 0; i < rows; ++i) acc += M[i * stride + col] * w[i];
-  return acc;
-}
-
-#ifdef __CUDACC__
-// Relative KKT residuals (OSQP normalization) and sign violation of an
-// unscaled primal/dual pair, from per-thread row/column values:
-//   thread i < m holds ax_i, y_i (unscaled) and the clipped bounds lo_i, uo_i;
-//   thread j < n holds hx_j, aty_j, g_j (unscaled).
-// Thread 0 writes pr[b], du[b], sv[b].
-template <typename T>
-__device__ void kkt_epilogue(bool is_row, bool is_col, T ax, T y, T lo, T uo,
-                             T hx, T aty, T gu, T* red,
-                             T* pr, T* du, T* sv, int b) {
-  const T big = T(1e20), fin = T(1e19);
-  const bool l_fin = absv(lo) < fin, u_fin = absv(uo) < fin;
-  T v_fb = T(0), v_ax = T(0), v_pr = T(0);
-  if (is_row) {
-    v_fb = nan_max(l_fin ? absv(lo) : T(0), u_fin ? absv(uo) : T(0));
-    v_ax = absv(ax);
-    v_pr = absv(ax - clip(ax, lo, uo));
-  }
-  T v_h = T(0), v_a = T(0), v_g = T(0), v_du = T(0);
-  if (is_col) {
-    v_h = absv(hx); v_a = absv(aty); v_g = absv(gu);
-    v_du = absv(hx + gu + aty);
-  }
-  const T finite_b = block_max(v_fb, red);
-  const T pscale = nan_max(T(1), nan_max(block_max(v_ax, red), finite_b));
-  const T dscale = nan_max(
-      T(1), nan_max(block_max(v_h, red),
-                    nan_max(block_max(v_a, red), block_max(v_g, red))));
-  const T prn = block_max(v_pr, red);
-  const T dun = block_max(v_du, red);
-  T v_sv = T(0);
-  if (is_row) {
-    const bool eq = (uo - lo) <= T(1e-9);
-    const T d_up = u_fin ? nan_max(uo - ax, T(0)) : big;
-    const T d_lo = l_fin ? nan_max(ax - lo, T(0)) : big;
-    const T dist = eq ? T(0) : (y > T(0) ? d_up : d_lo);
-    const T a = absv(y) / dscale, c = dist / pscale;
-    v_sv = (a < c || a != a) ? a : c;   // min, NaN kept
-  }
-  const T svn = block_max(v_sv, red);
-  if (threadIdx.x == 0) {
-    pr[b] = prn / pscale;
-    du[b] = dun / dscale;
-    sv[b] = svn;
-  }
-}
-
-#endif  // __CUDACC__
 
 }  // namespace qwbc

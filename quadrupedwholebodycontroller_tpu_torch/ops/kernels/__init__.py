@@ -26,8 +26,9 @@ def reset_counts() -> None:
         for name in mod.LAUNCHES:
             mod.LAUNCHES[name] = 0
             mod.PLAIN_CALLS[name] = 0
-    for name in admm_zy.VARIANT_LAUNCHES:
-        admm_zy.VARIANT_LAUNCHES[name] = 0
+    for mod in (admm_zy, admm):
+        for name in mod.VARIANT_LAUNCHES:
+            mod.VARIANT_LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:

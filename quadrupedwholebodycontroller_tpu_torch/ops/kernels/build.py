@@ -21,15 +21,15 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 SOURCES = ("prepare.cu", "admm_zy.cu", "admm.cu", "polish.cu", "setup.cu", "ns_warm.cu")
-HEADERS = ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh")
+HEADERS = ("common.cuh", "prepare_tail.cuh", "admm_words.cuh")
 # the objects of the device build: every source once, and setup.cu a second
 # time with its section probes alone (see there), compiled beside the others
 OBJECTS = tuple((name, name[:-3], ()) for name in SOURCES) + (
     ("setup.cu", "setup_sections", ("-DQWBC_SETUP_SECTIONS",)),)
 # sources written with the stage macros of common.cuh alone, which also
 # compile as plain C++ (see `host_lib`)
-HOST_SOURCES = ("setup.cu", "ns_warm.cu", "polish.cu", "admm_zy.cu")
-HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared")
+HOST_SOURCES = ("setup.cu", "ns_warm.cu", "polish.cu", "admm_zy.cu", "admm.cu")
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -140,10 +140,7 @@ def _declare(lib) -> None:
         fn.argtypes = [_PTR] * 19 + [i, i, i, i, real, real, _PTR]
         fn.restype = i
         _declare_admm_zy(lib, suffix, real)
-        fn = getattr(lib, f"qwbc_admm_{suffix}")
-        # pointers, B, n, m, iters, epilogue, sigma, alpha, 1 - alpha, stream
-        fn.argtypes = [_PTR] * 20 + [i, i, i, i, i, real, real, real, _PTR]
-        fn.restype = i
+        _declare_admm(lib, suffix, real)
         _declare_polish(lib, suffix, real)
         _declare_setup(lib, suffix, real)
         _declare_ns_warm(lib, suffix)
@@ -164,6 +161,17 @@ def _declare_admm_zy(lib, suffix, real) -> None:
         fn = getattr(lib, f"qwbc_admm_zy_{name}")
         fn.argtypes = [i] * args
         fn.restype = res
+
+
+def _declare_admm(lib, suffix, real) -> None:
+    i = ctypes.c_int
+    fn = getattr(lib, f"qwbc_admm_{suffix}")
+    # pointers, B, n, m, iters, epilogue, sigma, alpha, 1 - alpha, stream
+    fn.argtypes = [_PTR] * 20 + [i, i, i, i, i, real, real, real, _PTR]
+    fn.restype = i
+    # the shared memory in words of a shape, element size and epilogue flag
+    lib.qwbc_admm_words.argtypes = [i, i, i, i]
+    lib.qwbc_admm_words.restype = ctypes.c_size_t
 
 
 def _declare_setup(lib, suffix, real) -> None:
@@ -218,7 +226,8 @@ def lib():
 
 
 def host_lib():
-    """`HOST_SOURCES` compiled as plain C++ by the host's compiler, where a
+    """`HOST_SOURCES` compiled as plain C++ by the host's compiler (one
+    compile per source, all started together, then one link), where a
     block is one thread that runs each stage's items in turn: the kernels'
     own arithmetic, checked without a GPU (tests only; nothing on a
     device path calls it).  Raises if there is no C++ compiler."""
@@ -232,13 +241,20 @@ def host_lib():
         if not os.path.exists(path):
             os.makedirs(build_dir(), exist_ok=True)
             with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+                objs = [os.path.join(tmp, n + ".o") for n in HOST_SOURCES]
+                procs = [subprocess.Popen(
+                    [cxx, *HOST_FLAGS, "-I", CSRC_DIR, "-c", os.path.join(CSRC_DIR, n),
+                     "-o", o], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                    for n, o in zip(HOST_SOURCES, objs)]
+                outs = [p.communicate()[0] for p in procs]
+                if any(p.returncode != 0 for p in procs):
+                    raise RuntimeError(f"{cxx} failed:\n" + "\n".join(outs))
                 tmp_lib = os.path.join(tmp, "lib.so")
-                run = subprocess.run(
-                    [cxx, *HOST_FLAGS, "-I", CSRC_DIR, "-o", tmp_lib,
-                     *(os.path.join(CSRC_DIR, n) for n in HOST_SOURCES)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                run = subprocess.run([cxx, "-shared", "-o", tmp_lib, *objs],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)
                 if run.returncode != 0:
-                    raise RuntimeError(f"{cxx} failed:\n{run.stdout}")
+                    raise RuntimeError(f"{cxx} link failed:\n{run.stdout}")
                 os.replace(tmp_lib, path)
         loaded = ctypes.CDLL(path)
         for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
@@ -246,6 +262,7 @@ def host_lib():
             _declare_ns_warm(loaded, suffix)
             _declare_polish(loaded, suffix, real)
             _declare_admm_zy(loaded, suffix, real)
+            _declare_admm(loaded, suffix, real)
         _host_lib = loaded
     return _host_lib
 

@@ -51,7 +51,7 @@ def test_port_has_the_expected_modules():
                  "planner/gait.py", "planner/trot.py", "sim/world.py",
                  "sim/scenario.py", "sim/rollout.py"):
         assert want in rel, want
-    for src in ("common.cuh", "prepare_tail.cuh", "admm_epilogue.cuh", "prepare.cu",
+    for src in ("common.cuh", "prepare_tail.cuh", "admm_words.cuh", "prepare.cu",
                 "admm_zy.cu", "admm.cu", "polish.cu", "setup.cu", "ns_warm.cu"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
     assert os.path.exists(os.path.join(PORT, "models", "data", "anymal_d.json"))
@@ -72,22 +72,29 @@ def test_prepare_and_setup_share_one_prepare_tail():
 
 
 def test_admm_kernels_share_one_epilogue():
-    """The residual epilogue is written once in each of its two forms: the
-    block-wide one of admm_epilogue.cuh (kkt_epilogue), which the x-space
-    ADMM kernel calls, and the per-warp certificate helpers of common.cuh,
-    which the constraint-space ADMM kernel and the compact polish call;
-    no kernel source carries a copy."""
+    """The certificate is written once, as the per-warp helpers of
+    common.cuh, which both ADMM kernels and the polish call; the two ADMM
+    kernels share one register design, admm_words.cuh (the thread roles and
+    each thread's matrix words); no kernel source carries a copy of either,
+    nor the block-wide epilogue they replaced."""
     read = lambda f: open(os.path.join(PORT, "csrc", f)).read()
-    assert "void admm_epilogue(" in read("admm_epilogue.cuh")
-    text = read("admm.cu")
-    assert '#include "admm_epilogue.cuh"' in text and "admm_epilogue(" in text
-    assert "kkt_epilogue(" not in text and "Hs + bn * n" not in text
+    words = read("admm_words.cuh")
+    assert "struct ZyWords" in words and "ZyWho zy_who(" in words
     assert "void cert_finish(" in read("common.cuh")
-    for src in ("admm_zy.cu", "polish.cu"):
+    for src in ("admm_zy.cu", "admm.cu", "polish.cu"):
         text = read(src)
         assert "cert_warp_maxima(" in text and "cert_finish(" in text
         assert "kkt_epilogue(" not in text and "block_max(" not in text
         assert "1e-9" not in text and "1e19" not in text   # the certificate's tests
+    for src in ("admm_zy.cu", "admm.cu"):
+        text = read(src)
+        assert '#include "admm_words.cuh"' in text
+        assert "struct ZyWords" not in text and "zy_who(int" not in text
+    for src in sorted(os.listdir(os.path.join(PORT, "csrc"))):
+        text = read(src)
+        assert "kkt_epilogue(" not in text and "block_max(" not in text, src
+        if src != "admm_words.cuh":
+            assert "struct ZyWords" not in text, src
 
 
 @pytest.mark.parametrize("name", KERNEL_MODULES)

@@ -20,7 +20,8 @@ from its plain version on those inputs.  The kernels and batches:
     and the rescue of the main path); `--iters` times other iteration counts
     (0: the load and the epilogue alone; the main path's 40 by default);
   * admm: the x-space ADMM with and without its epilogue (K5, K6) at
-    B = 4096;
+    B = 4096 and 128 (round 1 and the rescue of the sigma path); `--iters`
+    as for admm_zy (160: the cold start's call);
   * polish: the compact and dense polish (K2, K7) at B = 4096, 128, 64 and
     32 (round 1, the rescue, the drop round, the rescue's round 2);
     `--refine` times other numbers of refinement passes;
@@ -65,7 +66,7 @@ sys.path.insert(0, ROOT)
 KERNELS = {"admm_zy": ("admm_zy_iterations_res",),
            "admm": ("admm_iterations_res", "admm_iterations"),
            "polish": ("polish_solve_compact", "polish_solve_dense")}
-BATCHES = {"admm_zy": (4096, 128), "admm": (4096,), "polish": (4096, 128, 64, 32)}
+BATCHES = {"admm_zy": (4096, 128), "admm": (4096, 128), "polish": (4096, 128, 64, 32)}
 OUTPUTS = {"admm_zy_iterations_res": "x z y pr du sv", "admm_iterations_res":
            "x z y pr du sv", "admm_iterations": "x z y",
            "polish_solve_compact": "x y z pr du sv", "polish_solve_dense": "x y z pr du sv"}
@@ -173,7 +174,7 @@ def compare(dir_a, dir_b):
 
 def counts(group, kw, args):
     """(keyword, the counts to time) of a kernel."""
-    if group == "admm_zy" and args.iters is not None:
+    if group in ("admm_zy", "admm") and args.iters is not None:
         return "iters", [int(r) for r in args.iters.split(",")]
     if group == "polish" and args.refine is not None:
         return "refine", [int(r) for r in args.refine.split(",")]
@@ -194,8 +195,8 @@ def main():
     ap.add_argument("--kernel", default="admm_zy,admm,polish",
                     help="comma-separated, of " + ", ".join(KERNELS) + ", setup")
     ap.add_argument("--iters", default=None,
-                    help="comma-separated ADMM iteration counts of admm_zy to time "
-                         "instead of the main path's (0: load and epilogue alone)")
+                    help="comma-separated ADMM iteration counts of admm_zy and admm to "
+                         "time instead of the main path's (0: load and epilogue alone)")
     ap.add_argument("--refine", default=None,
                     help="comma-separated refinement passes of the polish to time "
                          "instead of the main path's (a diagnosis: the cost of one pass)")
