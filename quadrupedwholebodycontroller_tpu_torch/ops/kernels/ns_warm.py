@@ -29,8 +29,12 @@ PLAIN_CALLS = {"ns_inverse_warm": 0}
 
 
 def _smem_bytes(n: int, itemsize: int) -> int:
-    """The kernel's shared memory (csrc/ns_warm.cu ns_warm_words)."""
-    return itemsize * (4 * n * (n | 1) + 4 * n + 4)
+    """The kernel's shared memory (csrc/ns_warm.cu ns_warm_words): four
+    n x ld matrices and four vectors of n; ld is n rounded up to 4, four
+    more where a quarter of it is even."""
+    width = -(-n // 4) * 4
+    ld = width if (width // 4) % 2 else width + 4
+    return itemsize * (4 * n * ld + 4 * n + 4)
 
 
 def _cold_x0(A):
@@ -65,7 +69,7 @@ def _check(A, warm, device_type):
                                 device_type)
     if _smem_bytes(n, A.element_size()) > build.SMEM_BYTES:
         raise ValueError(
-            f"ns_inverse_warm kernel holds four n*n matrices in shared memory: "
+            f"ns_inverse_warm kernel holds four n x ld matrices in shared memory: "
             f"n={n} in {A.dtype} needs {_smem_bytes(n, A.element_size())} bytes, "
             f"more than {build.SMEM_BYTES}")
     return suffix

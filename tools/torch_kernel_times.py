@@ -3,8 +3,8 @@
 CUDA card, and a bit-for-bit comparison of two trees' outputs.
 
     python3 tools/torch_kernel_times.py [--label tree] [--reps 50]
-        [--kernel admm_zy,admm,polish] [--iters 0,40] [--refine 0,5]
-        [--case main,resolving] [--batches 4096,128,37] [--dump DIR]
+        [--kernel admm_zy,admm,polish,ns_warm,setup] [--iters 0,40] [--refine 0,5]
+        [--sweeps 0,4] [--case main,resolving] [--batches 4096,128,37] [--dump DIR]
     python3 tools/torch_kernel_times.py --compare DIR_A DIR_B
     python3 tools/torch_kernel_times.py --first-k4 5 --kernel none
 
@@ -25,6 +25,11 @@ from its plain version on those inputs.  The kernels and batches:
   * polish: the compact and dense polish (K2, K7) at B = 4096, 128, 64 and
     32 (round 1, the rescue, the drop round, the rescue's round 2);
     `--refine` times other numbers of refinement passes;
+  * ns_warm: the warm Newton-Schulz update (K8) on all five of
+    `chip_smoke.ns_warm_cases` (n = 42 and, "n70", n = 70; a NaN, a far and
+    a blown-up warm start) at B = 4096, 128 and the ragged 37, whatever
+    `--case` says; `--iters` times other numbers of steps (0: the loads,
+    the check and the guard alone);
   * `--case` takes other cases of `chip_smoke.kernel_problem` besides (or
     instead of) "main" (e.g. "resolving": the same problems far from
     converged), `--batches` other batch sizes (e.g. the ragged 37) for
@@ -32,8 +37,10 @@ from its plain version on those inputs.  The kernels and batches:
   * setup: the fused setup kernel's plain and fused variants (K3) and its
     exact mode (K3x, fused) at B = 4096, 128 and the ragged 37, on
     `chip_smoke.setup_args` (recorded step 60, contact switches), and the
-    prepare kernel (K4) at B = 4096; every output of the setup result,
-    the carry updates and the prepared tensors is dumped.
+    prepare kernel (K4) at the same batches on the kernel problem, at the
+    shipped 4 Ruiz sweeps or at each of `--sweeps` (0: its loads and
+    writes alone); every output of the setup result, the carry updates and
+    the prepared tensors is dumped.
 
 `--first-k4 N` first times the prepare kernel (K4, B = 4096, float32) N
 times in a row, right after the build and before anything else, as
@@ -65,11 +72,14 @@ sys.path.insert(0, ROOT)
 
 KERNELS = {"admm_zy": ("admm_zy_iterations_res",),
            "admm": ("admm_iterations_res", "admm_iterations"),
-           "polish": ("polish_solve_compact", "polish_solve_dense")}
-BATCHES = {"admm_zy": (4096, 128), "admm": (4096, 128), "polish": (4096, 128, 64, 32)}
+           "polish": ("polish_solve_compact", "polish_solve_dense"),
+           "ns_warm": ("ns_inverse_warm",)}
+BATCHES = {"admm_zy": (4096, 128), "admm": (4096, 128), "polish": (4096, 128, 64, 32),
+           "ns_warm": (4096, 128, 37)}
 OUTPUTS = {"admm_zy_iterations_res": "x z y pr du sv", "admm_iterations_res":
            "x z y pr du sv", "admm_iterations": "x z y",
-           "polish_solve_compact": "x y z pr du sv", "polish_solve_dense": "x y z pr du sv"}
+           "polish_solve_compact": "x y z pr du sv", "polish_solve_dense": "x y z pr du sv",
+           "ns_inverse_warm": "X"}
 
 
 def sub_batch(args, b):
@@ -96,8 +106,10 @@ SETUP_VARIANTS = {   # name: (exact_mode, fused)
 SETUP_BATCHES = (4096, 128, 37)
 
 
-def setup_runs(chip_smoke, dtype):
-    """(name, B, wrapper call, plain call, output names) of the setup group."""
+def setup_runs(chip_smoke, dtype, sweeps=None):
+    """(name, B, tag, wrapper call, plain call, output names) of the setup
+    group; tag: {"sweeps": s} of the prepare kernel at `sweeps` (default
+    the shipped count), else {}."""
     from quadrupedwholebodycontroller_tpu_torch.config import QPSolverParams
     from quadrupedwholebodycontroller_tpu_torch.ops.kernels import setup as setup_k
 
@@ -108,32 +120,37 @@ def setup_runs(chip_smoke, dtype):
         outs = chip_smoke.SETUP_OUT if fused else chip_smoke.SETUP_RESULT + chip_smoke.SETUP_CARRY
         for b in SETUP_BATCHES:
             a = setup_sub_batch(full, b)
-            yield (name, b,
+            yield (name, b, {},
                    lambda a=a, kw=kw: chip_smoke.setup_flat(setup_k.setup_batched(*a, **kw)),
                    lambda a=a, kw=kw: chip_smoke.setup_flat(setup_k.setup_batched_plain(*a, **kw)),
                    outs)
     cases, _ = chip_smoke.kernel_problem(4096, dtype, np.random.default_rng(0))
     _, _, fn, plain, a, kw = next(c for c in cases if c[0] == "prepare_scaled")
-    yield ("prepare_scaled", 4096, lambda: fn(*a, **kw), lambda: plain(*a, **kw),
-           chip_smoke.PREP_OUT)
+    for s in (sweeps or [kw["sweeps"]]):
+        for b in SETUP_BATCHES:
+            ab, ks = sub_batch(a, b), dict(kw, sweeps=s)
+            yield ("prepare_scaled", b, {"sweeps": s}, lambda ab=ab, ks=ks: fn(*ab, **ks),
+                   lambda ab=ab, ks=ks: plain(*ab, **ks), chip_smoke.PREP_OUT)
 
 
 def time_setup(chip_smoke, args, card):
+    sweeps = [int(s) for s in args.sweeps.split(",")] if args.sweeps else None
     for dtype in (torch.float32, torch.float64):
         dt = str(dtype)[6:]
         with torch.no_grad():
-            for name, b, fn, plain, outs in setup_runs(chip_smoke, dtype):
+            for name, b, tag, fn, plain, outs in setup_runs(chip_smoke, dtype, sweeps):
                 got, want = fn(), plain()
                 err = max(float((g.double() - w.double()).abs().max())
                           for g, w in zip(got, want))
                 ms = chip_smoke.time_ms(fn, reps=args.reps, host_ahead=True)
                 if args.dump:
                     for o, t in zip(outs, got):
-                        np.save(os.path.join(args.dump, f"{name}_{dt}_B{b}_{o}.npy"),
+                        np.save(os.path.join(args.dump, f"{name}_{dt}_B{b}" + "".join(
+                            f"_{k}{v}" for k, v in tag.items()) + f"_{o}.npy"),
                                 t.cpu().numpy())
                 print(json.dumps({"label": args.label, "kernel": name, "dtype": dt, "B": b,
-                                  "ms": ms, "max_abs_err_vs_plain": err, "card": card}),
-                      flush=True)
+                                  **tag, "ms": ms, "max_abs_err_vs_plain": err,
+                                  "card": card}), flush=True)
 
 
 def sm_clock():
@@ -174,12 +191,9 @@ def compare(dir_a, dir_b):
 
 def counts(group, kw, args):
     """(keyword, the counts to time) of a kernel."""
-    if group in ("admm_zy", "admm") and args.iters is not None:
-        return "iters", [int(r) for r in args.iters.split(",")]
-    if group == "polish" and args.refine is not None:
-        return "refine", [int(r) for r in args.refine.split(",")]
-    key = "refine" if group == "polish" else "iters"
-    return key, [kw[key]]
+    key = {"polish": "refine", "ns_warm": "warm_iters"}.get(group, "iters")
+    given = args.refine if group == "polish" else args.iters
+    return key, [int(r) for r in given.split(",")] if given is not None else [kw[key]]
 
 
 def dump_name(name, case, dt, b, key, v, o):
@@ -192,11 +206,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="tree")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--sweeps", default=None,
+                    help="comma-separated Ruiz sweeps of the prepare kernel (setup group) "
+                         "to time instead of the shipped 4 (0: loads and writes alone)")
     ap.add_argument("--kernel", default="admm_zy,admm,polish",
                     help="comma-separated, of " + ", ".join(KERNELS) + ", setup")
     ap.add_argument("--iters", default=None,
-                    help="comma-separated ADMM iteration counts of admm_zy and admm to "
-                         "time instead of the main path's (0: load and epilogue alone)")
+                    help="comma-separated ADMM iteration counts of admm_zy and admm, or "
+                         "Newton-Schulz steps of ns_warm, to time instead of the main "
+                         "path's (0: load and epilogue, or the check, alone)")
     ap.add_argument("--refine", default=None,
                     help="comma-separated refinement passes of the polish to time "
                          "instead of the main path's (a diagnosis: the cost of one pass)")
@@ -236,7 +254,7 @@ def main():
             cases, _ = chip_smoke.kernel_problem(4096, dtype, np.random.default_rng(0))
             for name, case, fn, plain, a, kw in cases:
                 group = next((g for g in groups if name in KERNELS.get(g, ())), None)
-                if case not in cases_wanted or group is None:
+                if group is None or (case not in cases_wanted and group != "ns_warm"):
                     continue
                 key, values = counts(group, kw, args)
                 batches = [int(b) for b in args.batches.split(",")] if args.batches \
