@@ -4,5 +4,6 @@ from quadrupedwholebodycontroller_tpu_torch.control.wbc import (  # noqa: F401
     WBCCarry,
     WBCOutput,
     init_carry,
+    wbc_step,
     wbc_step_batched,
 )

@@ -5,7 +5,8 @@ computeJointTorques) as a function
 
     wbc_step_batched : (obs, ref, carry, cache) -> (output, carry, cache)
 
-over a scenario batch (the leading dimension of every leaf), with every
+over a scenario batch (the leading dimension of every leaf), and as
+`wbc_step`, each scenario solved as the single robot is, with every
 cross-cycle member of the reference's C++ class (old jacobians for finite
 differences, integral error, QP hotstart memory, contact-switch flag) made
 explicit in a WBCCarry.
@@ -468,11 +469,16 @@ def wbc_step_batched(
     inside the batch cold-restart only the scenarios that switched.  None:
     every inverse is cold and the solver runs its plain Schur polish.
 
-    qp_backend: "kernel" (the solver kernels).  setup_backend: "kernel"
-    (the fused setup kernel `ops.kernels.setup.setup_batched`, with the QP
-    prepare stage fused in and handed to the solver as `prepared=`),
-    "torch" (`wbc_setup`, batched tensor code, then the prepare kernel: the
-    kernel path's oracle) or "auto": "kernel" with the kernel QP backend.
+    qp_backend: "kernel" (the solver kernels) or "torch" (the single-sample
+    algorithm in tensor code with the batch-level rescue, the JAX package's
+    "xla" backend: `ops.qp.solve_batched(backend="torch")`; it keeps no
+    factorizations, so a given cache comes back as it went in).
+    setup_backend: "kernel" (the fused setup kernel
+    `ops.kernels.setup.setup_batched`; with the kernel QP backend the QP
+    prepare stage is fused in and handed to the solver as `prepared=`, with
+    the torch one the kernel runs without it), "torch" (`wbc_setup`,
+    batched tensor code; with the kernel QP backend the prepare kernel
+    follows: the kernel path's oracle) or "auto": the QP backend's name.
 
     With `params.exact_derivatives` the kernel setup runs its exact mode
     (the tangents propagated in the kernel); with `params.exact_epilogue`
@@ -480,13 +486,12 @@ def wbc_step_batched(
     with `_exact_epilogue_batched` instead: the exact modes' oracle.
 
     ref_is_new may be a bool or a per-scenario (B,) bool tensor."""
+    if qp_backend not in ("kernel", "torch"):
+        raise ValueError(f"qp_backend={qp_backend!r}")
     if setup_backend == "auto":
-        setup_backend = "kernel" if qp_backend == "kernel" else "torch"
+        setup_backend = qp_backend
     if setup_backend not in ("kernel", "torch"):
         raise ValueError(f"setup_backend={setup_backend!r}")
-    if qp_backend != "kernel":
-        raise NotImplementedError(
-            f"qp_backend={qp_backend!r}: only 'kernel' is ported")
     B = obs.q.shape[0]
     dev = obs.q.device
     ref_is_new_b = torch.as_tensor(ref_is_new, dtype=torch.bool, device=dev).expand(B)
@@ -494,7 +499,8 @@ def wbc_step_batched(
     if setup_backend == "kernel":
         epilogue = params.exact_derivatives and params.exact_epilogue
         sk = setup_kernel.setup_batched(
-            model, params, obs, ref, carry, ref_is_new_b, qp_params=qp_params,
+            model, params, obs, ref, carry, ref_is_new_b,
+            qp_params=qp_params if qp_backend == "kernel" else None,
             exact_mode=params.exact_derivatives and not epilogue)
         setup = WBCSetup(
             qp_data=qp.QPData(H=sk["H"], g=sk["g"], A=sk["A"], l=sk["l"], u=sk["u"]),
@@ -510,9 +516,12 @@ def wbc_step_batched(
         setup = wbc_setup(model, params, obs, ref, carry, ref_is_new_b)
     switch = setup.carry_updates["switch_flag"]
     warm = _switch_masked_warm(carry, switch)
+    # the closed-form polish H^-1 serves the kernel path; the torch backend
+    # derives its own
+    hinv_fn = _wbc_polish_hinv if qp_backend == "kernel" else None
     if qp_cache is None:
         qp_state, qp_info = qp.solve_batched(
-            setup.qp_data, warm, qp_params, qp_backend, hinv_fn=_wbc_polish_hinv,
+            setup.qp_data, warm, qp_params, qp_backend, hinv_fn=hinv_fn,
             prepared=prepared)
         return _finish_step(setup, qp_state, qp_info)
     # cache invalidation keys on the switch EDGE (contacts changed at THIS
@@ -529,8 +538,35 @@ def wbc_step_batched(
         use_warm = (valid_b & ~switch_edge).all()
     qp_state, qp_info, new_cache = qp.solve_batched(
         setup.qp_data, warm, qp_params, qp_backend,
-        cache=qp_cache, use_warm=use_warm, hinv_fn=_wbc_polish_hinv,
+        cache=qp_cache, use_warm=use_warm, hinv_fn=hinv_fn,
         prepared=prepared,
     )
     out, new_carry = _finish_step(setup, qp_state, qp_info)
     return out, new_carry, new_cache
+
+
+@torch.no_grad()
+def wbc_step(
+    model: RobotModel,
+    params: ControllerParams,
+    qp_params: QPSolverParams,
+    obs: RobotObservation,
+    ref: Reference,
+    carry: WBCCarry,
+    ref_is_new=True,
+):
+    """One 400 Hz control cycle of each scenario on its own, as the JAX
+    package's single-sample `wbc_step` (its result equals that function
+    under `vmap`; B = 1 is the single robot): `wbc_setup` -> the
+    switch-masked warm start -> `ops.qp.solve` (tensor code, its
+    single-sample rescue) -> the torque map.  Returns (out, carry).
+
+    ref_is_new mirrors the arrival of a planner message (the contact-switch
+    flag is only re-evaluated then): a bool or a (B,) bool tensor."""
+    B = obs.q.shape[0]
+    ref_is_new_b = torch.as_tensor(ref_is_new, dtype=torch.bool,
+                                   device=obs.q.device).expand(B)
+    setup = wbc_setup(model, params, obs, ref, carry, ref_is_new_b)
+    warm = _switch_masked_warm(carry, setup.carry_updates["switch_flag"])
+    qp_state, qp_info = qp.solve(setup.qp_data, warm, qp_params)
+    return _finish_step(setup, qp_state, qp_info)

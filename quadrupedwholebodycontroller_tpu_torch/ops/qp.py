@@ -18,6 +18,14 @@ design:
     plain Schur polish (`_polish`) instead,
   * a staged, compacted tail rescue with compensated refinement.
 
+The "torch" backend is the other algorithm, the JAX package's single-sample
+`solve` (its "xla" backend): per-problem Ruiz scaling, a cold K^-1, the
+x-space ADMM loop in tensor code at every sigma, dense Newton-Schulz polish
+rounds with the drop rule, and its own tail rescue.  `solve` runs it on a
+batch, scenario by scenario the same as the JAX function under `vmap`;
+`solve_batched(backend="torch")` runs it with the batch-level rescue
+(`_rescue_batched`) instead.  It launches no kernel.
+
 Problem form:  min 1/2 x^T H x + g^T x   s.t.  l <= A x <= u.
 Every leaf carries the scenario batch as its leading dimension.
 
@@ -29,6 +37,7 @@ them.  Nothing here needs a gradient: the entry point runs under
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -55,6 +64,14 @@ def _host(t):
     global HOST_SYNCS
     HOST_SYNCS += 1
     return t.item()
+
+
+def _host_nonzero(mask):
+    """The indices (k,) where the (B,) bool `mask` is set: their count is
+    read on the host (one sync)."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return torch.nonzero(mask).flatten()
 
 
 class QPData(NamedTuple):
@@ -134,6 +151,12 @@ def _put(a, idx, v):
 
 def _take_state(s: QPState, idx) -> QPState:
     return QPState(x=_take(s.x, idx), z=_take(s.z, idx), y=_take(s.y, idx))
+
+
+def _where_state(mask, a: QPState, b: QPState) -> QPState:
+    """Per scenario: `a` where the (B,) bool mask is set, `b` elsewhere."""
+    mk = mask[:, None]
+    return QPState(*(torch.where(mk, p, q) for p, q in zip(a, b)))
 
 
 def _take_h(t, idx):
@@ -289,18 +312,13 @@ def _accept_better(best, pr_b, du_b, res_b, polished, cand, pr_c, du_c,
     svc = sv_cand if sv_cand is not None else _sign_violation(data, cand.x, cand.y)
     ok = torch.maximum(res_c, svc) <= torch.maximum(
         res_b, _sign_violation(data, best.x, best.y))
-    oke = ok[:, None]
-    merged = QPState(
-        x=torch.where(oke, cand.x, best.x),
-        z=torch.where(oke, cand.z, best.z),
-        y=torch.where(oke, cand.y, best.y),
-    )
+    merged = _where_state(ok, cand, best)
     pol = polished | ok if cand_polished is None else polished | (ok & cand_polished)
     return (merged, torch.where(ok, pr_c, pr_b), torch.where(ok, du_c, du_b),
             torch.where(ok, res_c, res_b), pol)
 
 
-def _polish_comp(data: QPData, state: QPState, params: QPSolverParams, Hinv):
+def _polish_comp(data: QPData, state: QPState, params: QPSolverParams, Hinv=None):
     """Compensated (double-float32) active-set polish candidate.
 
     Re-estimate the active set from `state`, solve the regularized KKT
@@ -309,13 +327,15 @@ def _polish_comp(data: QPData, state: QPState, params: QPSolverParams, Hinv):
     transformations (ops/compensated.py): once the iterate is a few digits
     accurate a plain float32 residual is cancellation noise, while the
     compensated residual is exact to ~eps * |r|.  Preconditioner
-    applications stay plain products.  Returns (candidate, pr, du)."""
+    applications stay plain products.  Hinv: the polish H^-1 (dense or
+    compact); None: a cold Newton-Schulz inverse of H + reg I.  Returns
+    (candidate, pr, du)."""
     dtype = data.H.dtype
     n = data.H.shape[-1]
     eye_n = torch.eye(n, dtype=dtype, device=data.H.device)
     da, b = _assemble_active(data, state)
     Hreg = data.H + params.polish_reg * eye_n
-    Hinv_d = _dense_h(Hinv)
+    Hinv_d = ns_inverse(Hreg, params.ns_iters) if Hinv is None else _dense_h(Hinv)
     Bm = da[:, :, None] * data.A
     Bt = Bm.transpose(-1, -2)
     diag_S = params.polish_reg * da + (1.0 - da)
@@ -344,19 +364,209 @@ def _polish_comp(data: QPData, state: QPState, params: QPSolverParams, Hinv):
     return pol, pr, du
 
 
-def _polish(data: QPData, state: QPState, params: QPSolverParams, Hinv):
-    """Active-set KKT solve from `state`'s active-set estimate with the
-    plain Schur pipeline (`linalg.solve_kkt_schur`, a cold Schur inverse)
-    and the dense round-invariant H^-1: the polish of a solve without a
-    carried cache (the JAX package's single-sample `_polish`, batched)."""
+def _polish(data: QPData, state: QPState, params: QPSolverParams, Hinv, banned=None,
+            return_active: bool = False):
+    """Active-set KKT solve from `state`'s active-set estimate, minus the
+    `banned` rows, with the plain Schur pipeline (`linalg.solve_kkt_schur`,
+    a cold Schur inverse) and the dense round-invariant H^-1: the polish of
+    `solve` and of a solve without a carried cache (the JAX package's
+    single-sample `_polish`, batched).  With `return_active`, returns
+    (state, da, b): the active set it solved and its bound vector."""
     n = data.H.shape[-1]
-    da, b = _assemble_active(data, state)
+    da, b = _assemble_active(data, state) if banned is None else _masked(data, state, banned)
     x, y = solve_kkt_schur(
         data.H + params.polish_reg * torch.eye(n, dtype=data.H.dtype, device=data.H.device),
         da[:, :, None] * data.A, da, data.g, b, reg=params.polish_reg,
         iters=params.ns_iters, refine=params.polish_refine, Hinv=Hinv,
     )
-    return QPState(x=x, z=torch.minimum(torch.maximum(_mv(data.A, x), data.l), data.u), y=y)
+    pol = QPState(x=x, z=torch.minimum(torch.maximum(_mv(data.A, x), data.l), data.u), y=y)
+    return (pol, da, b) if return_active else pol
+
+
+def _polish_hinv(data: QPData, params: QPSolverParams):
+    """The round-invariant dense polish H^-1: a cold Newton-Schulz inverse
+    of H + reg I."""
+    n = data.H.shape[-1]
+    eye_n = torch.eye(n, dtype=data.H.dtype, device=data.H.device)
+    return ns_inverse(data.H + params.polish_reg * eye_n, params.ns_iters)
+
+
+def _rho_vec(data: QPData, params: QPSolverParams):
+    """ADMM penalty per row (B, m): boosted on the equality rows."""
+    eq = (data.u - data.l) <= 1e-9
+    rho = torch.full_like(data.l, params.rho)
+    return torch.where(eq, rho * params.rho_eq_scale, rho)
+
+
+def _ruiz_equilibrate(data: QPData, iters: int):
+    """Ruiz equilibration of each problem's KKT matrix [[H, A^T], [A, 0]]:
+    diagonal scalings d (B, n) and e (B, m), one sweep dividing every
+    column and row by the square root of its largest entry.  The WBC QP
+    mixes wrench rows (~5e2 N) with acceleration rows (~1)."""
+    B, m, n = data.A.shape
+    d = torch.ones((B, n), dtype=data.H.dtype, device=data.H.device)
+    e = torch.ones((B, m), dtype=data.H.dtype, device=data.H.device)
+    for _ in range(iters):
+        Hs = torch.abs(d[:, :, None] * data.H * d[:, None, :])
+        As = torch.abs(e[:, :, None] * data.A * d[:, None, :])
+        cx = torch.maximum(torch.amax(Hs, dim=1), torch.amax(As, dim=1))  # per variable
+        rz = torch.amax(As, dim=2)                                        # per row
+        d = d * torch.rsqrt(torch.clamp_min(cx, 1e-8))
+        e = e * torch.rsqrt(torch.clamp_min(rz, 1e-8))
+    return d, e
+
+
+def _rescue_solver_params(params: QPSolverParams) -> QPSolverParams:
+    """Settings of the rescue's re-solve: the rescue's ADMM and polish
+    budgets, and no rescue of its own."""
+    return dataclasses.replace(params, iterations=params.rescue_iterations,
+                               polish_rounds=params.rescue_polish_rounds,
+                               rescue_threshold=0.0)
+
+
+@torch.no_grad()
+def solve(data: QPData, warm: QPState, params: QPSolverParams = QPSolverParams()):
+    """Solve a batch of QPs, each as the JAX package's single-sample `solve`
+    does (its result equals that function under `vmap`, scenario by
+    scenario; B = 1 is the single robot).  Returns (state, info).  Tensor
+    code only, under `torch.no_grad()`.
+
+    Scaled problem -> a cold K^-1 of K = sH + sigma I + A^T diag(rho) A ->
+    `params.iterations` x-space ADMM iterations from the scaled warm start
+    (`cold_iterations` in all for a scenario whose warm start is all zero)
+    -> `polish_rounds` dense Schur polish rounds with the drop rule, each
+    candidate accepted on the sign-augmented residual -> with
+    `rescue_threshold` > 0, the single-sample rescue: while a scenario's
+    relative KKT is above the threshold and its last stage improved it, up
+    to `rescue_stages` times, re-solve it warm from its best iterate with
+    the rescue's budgets and keep the result where the plain KKT residual
+    is no worse.  Each stage runs on the scenarios still in it.
+
+    The kernel-only options (`_LATER`) do not apply: this algorithm never
+    reads them."""
+    B, m, n = data.A.shape
+    dtype, dev = data.H.dtype, data.H.device
+    eye_n = torch.eye(n, dtype=dtype, device=dev)
+
+    # ---- scaling ----
+    if params.scaling_iters > 0:
+        d, e = _ruiz_equilibrate(data, params.scaling_iters)
+    else:
+        d = torch.ones((B, n), dtype=dtype, device=dev)
+        e = torch.ones((B, m), dtype=dtype, device=dev)
+    sH = d[:, :, None] * data.H * d[:, None, :]
+    sg = d * data.g
+    sA = e[:, :, None] * data.A * d[:, None, :]
+    sl, su = e * data.l, e * data.u
+    rho = _rho_vec(QPData(sH, sg, sA, sl, su), params)
+    sigma, alpha = params.sigma, params.alpha
+    sAt = sA.transpose(-1, -2)
+    K = sH + sigma * eye_n + (sAt * rho[:, None, :]) @ sA
+    Kinv = ns_inverse(K, params.ns_iters)
+
+    def admm_loop(x, z, y, iters):
+        for _ in range(iters):
+            rhs = sigma * x - sg + _mv(sAt, rho * z - y)
+            x_t = _mv(Kinv, rhs)
+            z_t = _mv(sA, x_t)
+            x_n = alpha * x_t + (1.0 - alpha) * x
+            z_pre = alpha * z_t + (1.0 - alpha) * z + y / rho
+            z_n = torch.minimum(torch.maximum(z_pre, sl), su)
+            y = y + rho * (alpha * z_t + (1.0 - alpha) * z - z_n)
+            x, z = x_n, z_n
+        return x, z, y
+
+    # the warm start mapped into the scaled space (x = d xs, y = e ys, z = zs / e)
+    x, z, y = admm_loop(warm.x / d, warm.z * e, warm.y / e, params.iterations)
+    # cold start (an all-zero warm state): spend the init budget, the
+    # qpOASES init/hotstart asymmetry; run for the batch when any scenario
+    # is cold and kept only where it is
+    extra = max(0, params.cold_iterations - params.iterations)
+    if extra:
+        cold = ~((warm.x != 0).any(-1) | (warm.z != 0).any(-1) | (warm.y != 0).any(-1))
+        if _host(cold.any()):
+            xc, zc, yc = admm_loop(x, z, y, extra)
+            ck = cold[:, None]
+            x, z, y = (torch.where(ck, xc, x), torch.where(ck, zc, z),
+                       torch.where(ck, yc, y))
+    best = QPState(x=d * x, z=z / e, y=e * y)
+
+    pr_b, du_b = kkt_residual(data, best.x, best.y)
+    res_b = _finite_or_inf(pr_b, du_b)
+    sv_b = _sign_violation(data, best.x, best.y)
+    polished = torch.zeros_like(res_b, dtype=torch.bool)
+    Hinv_polish = _polish_hinv(data, params) if params.polish else None
+    # polish rounds with the DROP rule: each round re-estimates the active
+    # set from the working candidate chain (through rejections), minus the
+    # rows whose candidate multiplier came out wrong-signed
+    eq_rows = (data.u - data.l) <= 1e-9
+    tol_drop = _tol_drop(data)
+    banned = torch.zeros_like(eq_rows)
+    w_pol = best
+    for _ in range(params.polish_rounds if params.polish else 0):
+        pol, da, b = _polish(data, w_pol, params, Hinv_polish, banned=banned,
+                             return_active=True)
+        banned = banned | _wrong_signed(data, da, b, pol.y, eq_rows, tol_drop)
+        w_pol = pol
+        pr_p, du_p = kkt_residual(data, pol.x, pol.y)
+        res_p = _finite_or_inf(pr_p, du_p)
+        sv_p = _sign_violation(data, pol.x, pol.y)
+        ok = torch.maximum(res_p, sv_p) <= torch.maximum(res_b, sv_b)
+        best = _where_state(ok, pol, best)
+        pr_b, du_b = torch.where(ok, pr_p, pr_b), torch.where(ok, du_p, du_b)
+        res_b, sv_b = torch.where(ok, res_p, res_b), torch.where(ok, sv_p, sv_b)
+        polished = polished | ok
+
+    if params.rescue_threshold > 0:
+        rparams = _rescue_solver_params(params)
+        improved = torch.ones_like(polished)
+        for _ in range(params.rescue_stages):
+            idx = _host_nonzero((res_b > params.rescue_threshold) & improved)
+            if idx.numel() == 0:
+                break
+            res_i = _take(res_b, idx)
+            st, ri = solve(QPData(*(_take(leaf, idx) for leaf in data)),
+                           _take_state(best, idx), rparams)
+            ok = ri.kkt_residual <= res_i
+            kept = _where_state(ok, st, _take_state(best, idx))
+            best = QPState(*(_put(a, idx, k) for a, k in zip(best, kept)))
+            pr_b = _put(pr_b, idx, torch.where(ok, ri.primal_residual, _take(pr_b, idx)))
+            du_b = _put(du_b, idx, torch.where(ok, ri.dual_residual, _take(du_b, idx)))
+            res_b = _put(res_b, idx, torch.where(ok, ri.kkt_residual, res_i))
+            polished = _put(polished, idx, _take(polished, idx) | (ok & ri.polished))
+            improved = _put(improved, idx, ok & (ri.kkt_residual < res_i))
+    return best, QPInfo(pr_b, du_b, res_b, polished)
+
+
+def _rescue_batched(data: QPData, best: QPState, info: QPInfo, params: QPSolverParams,
+                    hinv_fn=None):
+    """The batch-level tail rescue of the "torch" backend: while ANY
+    scenario's relative KKT exceeds rescue_threshold (up to rescue_stages
+    times, and while the last stage improved some scenario), re-solve the
+    whole batch warm from its best iterates with the rescue's budgets
+    (`solve_batched(backend="torch")`), add a compensated-refinement polish
+    candidate (`_polish_comp`, with `hinv_fn`'s H^-1 when given, else its
+    own Newton-Schulz inverse), and accept each candidate per scenario on
+    the sign-augmented residual."""
+    rparams = _rescue_solver_params(params)
+    pr_b, du_b, res_b, pol = info
+    stage, improved = 0, True
+    while (stage < params.rescue_stages and improved
+           and _host((res_b > params.rescue_threshold).any())):
+        st, ri = solve_batched(data, best, rparams, "torch", hinv_fn=hinv_fn)
+        merged, pr_m, du_m, res_m, pol = _accept_better(
+            best, pr_b, du_b, res_b, pol, st, ri.primal_residual, ri.dual_residual,
+            ri.kkt_residual, data, cand_polished=ri.polished)
+        if params.rescue_comp_refine > 0 and params.polish:
+            Hinv = hinv_fn(data.H, params.polish_reg) if hinv_fn is not None else None
+            cand, pr_c, du_c = _polish_comp(data, merged, params, Hinv)
+            merged, pr_m, du_m, res_m, pol = _accept_better(
+                merged, pr_m, du_m, res_m, pol, cand, pr_c, du_c,
+                _finite_or_inf(pr_c, du_c), data)
+        improved = bool(_host((res_m < res_b).any()))
+        best, pr_b, du_b, res_b = merged, pr_m, du_m, res_m
+        stage += 1
+    return best, QPInfo(pr_b, du_b, res_b, pol)
 
 
 def _polish_batched_kernel(data: QPData, params: QPSolverParams, H_reg, Hinv,
@@ -397,11 +607,13 @@ _LATER = {
 
 
 def _check_supported(params: QPSolverParams, backend):
-    if backend != "kernel":
-        raise NotImplementedError(
-            f"backend={backend!r}: only the kernel path is ported; the "
-            "single-sample reference solve comes with a later slice")
-    for name, off in _LATER.items():
+    """The kernel path reads every option of `_LATER`; the torch backend
+    reads only `comp_final_refine` of them."""
+    if backend not in ("kernel", "torch"):
+        raise ValueError(f"backend={backend!r}: 'kernel' (the solver kernels) or "
+                         "'torch' (the single-sample algorithm, tensor code)")
+    later = _LATER if backend == "kernel" else {"comp_final_refine": 0}
+    for name, off in later.items():
         if getattr(params, name) != off:
             raise NotImplementedError(
                 f"{name}={getattr(params, name)!r}: this option ships off "
@@ -432,6 +644,13 @@ def solve_batched(
     (state, info).  Runs under `torch.no_grad()`: this is the serving path,
     no gradient flows.
 
+    backend: "kernel" (the solver kernels, below) or "torch": `solve` with
+    its rescue off, then the batch-level rescue `_rescue_batched`, the JAX
+    package's "xla" backend.  The torch backend keeps no factorizations
+    (a given cache comes back as it went in), ignores `use_warm` and
+    `prepared`, and reads `hinv_fn` only for the rescue's compensated
+    candidates.
+
     cache / use_warm: carried QPCache of last cycle's inverses and the warm
     gate, a scalar or a (B,) bool mask.  With a mask (and
     0 < cold_batch < B) the warm update runs for the whole batch and the
@@ -449,6 +668,11 @@ def solve_batched(
     `warm`, already computed (the fused setup kernel's tail): the prepare
     stage is skipped and they are taken as they are."""
     _check_supported(params, backend)
+    if backend == "torch":
+        st, info = solve(data, warm, dataclasses.replace(params, rescue_threshold=0.0))
+        if params.rescue_threshold > 0:
+            st, info = _rescue_batched(data, st, info, params, hinv_fn)
+        return (st, info) if cache is None else (st, info, cache)
     B, m, n = data.A.shape
     dtype, dev = data.H.dtype, data.H.device
     eye_n = torch.eye(n, dtype=dtype, device=dev)
@@ -666,10 +890,7 @@ def solve_batched(
             w_pol = pol
         res_p = _finite_or_inf(pr_p, du_p)
         ok = torch.maximum(res_p, sv_p) <= torch.maximum(res_b, sv_b)
-        oke = ok[:, None]
-        best = QPState(x=torch.where(oke, pol.x, best.x),
-                       z=torch.where(oke, pol.z, best.z),
-                       y=torch.where(oke, pol.y, best.y))
+        best = _where_state(ok, pol, best)
         pr_b = torch.where(ok, pr_p, pr_b)
         du_b = torch.where(ok, du_p, du_b)
         res_b = torch.where(ok, res_p, res_b)

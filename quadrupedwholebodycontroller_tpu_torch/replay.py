@@ -46,15 +46,16 @@ def step_inputs(traj, t: int, batch: int, dtype, offsets=None, device="cuda"):
 
 def replay(model, traj, steps, batch: int, qpp: QPSolverParams, offsets=None,
            on_step=None, timed: bool = False, setup_backend: str = "auto",
-           cparams: ControllerParams | None = None):
+           cparams: ControllerParams | None = None, qp_backend: str = "kernel"):
     """Drive `wbc_step_batched` over the recorded steps `steps` (an iterable
     of step indices) from `init_carry` and an invalid cache, on the model's
     device and dtype.  `on_step(t, out, ms)` sees every step's output; with
     `timed` the device is synchronised around each step and `ms` is the
-    step's host time, else `ms` is None.  `setup_backend` is the step's
-    ("auto": the fused setup kernel; "torch": the tensor-code setup), and
-    `cparams` its controller parameters (default `ControllerParams()`).
-    Returns the final (carry, cache)."""
+    step's host time, else `ms` is None.  `qp_backend` and `setup_backend`
+    are the step's ("kernel": the kernels; "torch": tensor code; a setup
+    backend "auto" follows the QP backend), and `cparams` its controller
+    parameters (default `ControllerParams()`).  Returns the final (carry,
+    cache)."""
     dtype, device = model.mass.dtype, model.mass.device
     cp = ControllerParams() if cparams is None else cparams
     carry = wbc.init_carry(batch, dtype, device)
@@ -66,7 +67,7 @@ def replay(model, traj, steps, batch: int, qpp: QPSolverParams, offsets=None,
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
         out, carry, cache = wbc.wbc_step_batched(
-            model, cp, qpp, obs, ref, carry, new, "kernel", cache, valid,
+            model, cp, qpp, obs, ref, carry, new, qp_backend, cache, valid,
             setup_backend=setup_backend)
         if timed:
             torch.cuda.synchronize(device)

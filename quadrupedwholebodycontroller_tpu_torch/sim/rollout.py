@@ -4,8 +4,12 @@ The reference's process graph (motion planner node, controller node,
 simulator) as one loop over control steps: the planner ticks every
 `planner_ratio` control steps and its references are held in between (last
 writer wins, the queue-size-1 semantics of the reference); the control step
-solves the whole batch's QPs at once with a carried factorization cache;
-the simulator advances every scenario one control period.
+solves the batch's QPs; the simulator advances every scenario one control
+period.  Two loops: `batched_rollout` solves the whole batch at once with a
+carried factorization cache and freezes a fallen scenario (the sweep's
+loop); `rollout` runs each scenario as the single robot does
+(`control.wbc.wbc_step`), the loop of `closed_loop_rollout` and
+`trot_rollout`.
 
 `planner_ratio` is a host integer, so deciding whether the planner ticks
 costs no device sync; per-scenario decisions (a published reference, a
@@ -28,7 +32,7 @@ from quadrupedwholebodycontroller_tpu_torch.control import wbc
 from quadrupedwholebodycontroller_tpu_torch.models.anymal import INITIAL_JOINT_POS
 from quadrupedwholebodycontroller_tpu_torch.models.robot_model import RobotModel
 from quadrupedwholebodycontroller_tpu_torch.ops.qp import make_cache
-from quadrupedwholebodycontroller_tpu_torch.planner import gait
+from quadrupedwholebodycontroller_tpu_torch.planner import gait, trot
 from quadrupedwholebodycontroller_tpu_torch.planner.gait import tree_where
 from quadrupedwholebodycontroller_tpu_torch.sim import world
 
@@ -82,38 +86,17 @@ def init_rollout_carry(model: RobotModel, cparams: ControllerParams, batch: int,
     )
 
 
-@torch.no_grad()
-def batched_rollout(
-    model: RobotModel,
-    cparams: ControllerParams,
-    qparams: QPSolverParams,
-    sparams: world.SimParams,
-    planner_fn: Callable,     # (state, cmd (B, 3)) -> (state, Reference, published (B,))
-    planner_ratio: int,       # control steps per planner tick
-    carry: RolloutCarry,
-    commands,                 # (B, T, 3) [vx, vy, yaw_rate] per control step
-    scenario=None,            # sim.scenario.Scenario or None
-    sim_model: RobotModel | None = None,
-    mark: Callable[[int, str], None] | None = None,
-):
-    """T control steps of the batch, the QPs solved batch-wide each step
-    (`control.wbc.wbc_step_batched`, kernel setup and solver, with a carried
-    cache).  Returns (carry, trace) with trace leaves (B, T, ...).
-
-    A scenario that falls (CoM below 0.2 m or above 2 m, a speed above 50)
-    or whose state is no longer finite is frozen where it stands, so it
-    cannot poison the batch.  `mark(k, stage)`, if given, is called at the
-    start of control step k's stages "planner", "control", "sim" and at its
-    "end" (for timing; it must not change the state)."""
-    if sim_model is not None:
-        raise NotImplementedError(
-            "sim_model (per-scenario payload models for the physics): the "
-            "parallel-sweep slice of the port")
+def _loop(planner_fn, planner_ratio, carry: RolloutCarry, commands, scenario, control,
+          sim_model: RobotModel, sparams: world.SimParams, freeze: bool, mark):
+    """T control steps: the planner ticks every `planner_ratio` steps and
+    its references are held where it did not publish; `control(obs, ref,
+    wbc_carry, ref_is_new)` -> (out, wbc_carry) is the control step; the
+    simulator advances every scenario one control period with `sim_model`.
+    With `freeze`, a scenario that fell is frozen and its torque and KKT
+    residual are recorded as 0 from then on."""
     B, T = commands.shape[0], commands.shape[1]
-    dtype, device = commands.dtype, commands.device
+    device = commands.device
     friction = scenario.sim_friction if scenario is not None else None
-    cache = make_cache(B, QP_NUM_VARS, QP_NUM_CONSTRAINTS, qparams, dtype, device)
-    cache_valid = False
     alive = torch.ones(B, dtype=torch.bool, device=device)
     no_tick = torch.zeros(B, dtype=torch.bool, device=device)
     rows = []
@@ -129,29 +112,130 @@ def batched_rollout(
 
         if mark is not None:
             mark(k, "control")
-        out, wcarry, cache = wbc.wbc_step_batched(
-            model, cparams, qparams, world.observe(carry.sim), ref, carry.wbc, ref_is_new,
-            "kernel", cache, cache_valid)
-        cache_valid = True
+        out, wcarry = control(world.observe(carry.sim), ref, carry.wbc, ref_is_new)
 
         if mark is not None:
             mark(k, "sim")
         push = scenario.push_wrench[:, k] if scenario is not None else None
-        sim = world.sim_control_period(model, carry.sim, out.tau, sparams, friction, push)
-        finite = torch.isfinite(sim.u).all(-1) & torch.isfinite(sim.base_p).all(-1)
-        com_z = out.com_pos[:, 2]
-        sane = (com_z > 0.2) & (com_z < 2.0) & (sim.u.abs().amax(-1) < 50.0)
-        alive = alive & sane & finite
+        sim = world.sim_control_period(sim_model, carry.sim, out.tau, sparams, friction, push)
+        tau, kkt = out.tau, out.qp_info.kkt_residual
+        if freeze:
+            finite = torch.isfinite(sim.u).all(-1) & torch.isfinite(sim.base_p).all(-1)
+            com_z = out.com_pos[:, 2]
+            sane = (com_z > 0.2) & (com_z < 2.0) & (sim.u.abs().amax(-1) < 50.0)
+            alive = alive & sane & finite
+            tau, kkt = torch.where(alive[:, None], tau, 0.0), torch.where(alive, kkt, 0.0)
+            sim, wcarry = tree_where(alive, sim, carry.sim), tree_where(alive, wcarry, carry.wbc)
         rows.append(RolloutTrace(
             com_pos=out.com_pos, com_pose=out.com_pose, base_p=carry.sim.base_p,
-            q=carry.sim.q, tau=torch.where(alive[:, None], out.tau, 0.0), grf=out.grf,
-            foot_pos=out.foot_pos, ref_com_pose=ref.com_pose, ref_swing_pos=ref.swing_pos,
-            contacts=ref.contacts,
-            qp_kkt=torch.where(alive, out.qp_info.kkt_residual, 0.0)))
-        carry = RolloutCarry(sim=tree_where(alive, sim, carry.sim),
-                             wbc=tree_where(alive, wcarry, carry.wbc),
-                             planner=pstate, ref=ref)
+            q=carry.sim.q, tau=tau, grf=out.grf, foot_pos=out.foot_pos,
+            ref_com_pose=ref.com_pose, ref_swing_pos=ref.swing_pos, contacts=ref.contacts,
+            qp_kkt=kkt))
+        carry = RolloutCarry(sim=sim, wbc=wcarry, planner=pstate, ref=ref)
         if mark is not None:
             mark(k, "end")
     trace = RolloutTrace(*(torch.stack(leaf, dim=1) for leaf in zip(*rows)))
     return carry, trace
+
+
+@torch.no_grad()
+def batched_rollout(
+    model: RobotModel,
+    cparams: ControllerParams,
+    qparams: QPSolverParams,
+    sparams: world.SimParams,
+    planner_fn: Callable,     # (state, cmd (B, 3)) -> (state, Reference, published (B,))
+    planner_ratio: int,       # control steps per planner tick
+    carry: RolloutCarry,
+    commands,                 # (B, T, 3) [vx, vy, yaw_rate] per control step
+    scenario=None,            # sim.scenario.Scenario or None
+    sim_model: RobotModel | None = None,
+    mark: Callable[[int, str], None] | None = None,
+    qp_backend: str = "kernel",
+):
+    """T control steps of the batch, the QPs solved batch-wide each step
+    (`control.wbc.wbc_step_batched` with a carried cache; `qp_backend`
+    "kernel": the kernel setup and solver, "torch": the tensor-code setup
+    and solver with the batch-level rescue).  Returns (carry, trace) with
+    trace leaves (B, T, ...).
+
+    A scenario that falls (CoM below 0.2 m or above 2 m, a speed above 50)
+    or whose state is no longer finite is frozen where it stands, so it
+    cannot poison the batch.  `mark(k, stage)`, if given, is called at the
+    start of control step k's stages "planner", "control", "sim" and at its
+    "end" (for timing; it must not change the state)."""
+    if sim_model is not None:
+        raise NotImplementedError(
+            "sim_model (per-scenario payload models for the physics): the "
+            "parallel-sweep slice of the port")
+    cache = make_cache(commands.shape[0], QP_NUM_VARS, QP_NUM_CONSTRAINTS, qparams,
+                       commands.dtype, commands.device)
+    cache_valid = False
+
+    def control(obs, ref, wcarry, ref_is_new):
+        nonlocal cache, cache_valid
+        out, wcarry, cache = wbc.wbc_step_batched(
+            model, cparams, qparams, obs, ref, wcarry, ref_is_new, qp_backend, cache,
+            cache_valid)
+        cache_valid = True
+        return out, wcarry
+
+    return _loop(planner_fn, planner_ratio, carry, commands, scenario, control, model,
+                 sparams, True, mark)
+
+
+@torch.no_grad()
+def rollout(
+    model: RobotModel,
+    cparams: ControllerParams,
+    qparams: QPSolverParams,
+    sparams: world.SimParams,
+    planner_fn: Callable,     # (state, cmd (B, 3)) -> (state, Reference, published (B,))
+    planner_ratio: int,       # control steps per planner tick
+    carry: RolloutCarry,
+    commands,                 # (B, T, 3) [vx, vy, yaw_rate] per control step
+    scenario=None,            # sim.scenario.Scenario or None
+    sim_model: RobotModel | None = None,
+    mark: Callable[[int, str], None] | None = None,
+):
+    """T control steps of each scenario as the single robot runs them
+    (the JAX package's `rollout`; its result equals that function under
+    `vmap`, and B = 1 is the single robot): the control step is
+    `control.wbc.wbc_step` (tensor code, the single-sample solve), and
+    nothing is frozen: a scenario that falls keeps running and its torques
+    and KKT residuals are recorded as they come.  The controller uses the
+    nominal `model`; `sim_model`, one model shared by the batch (e.g. with
+    a payload, `scenario.apply_payload`), simulates a model mismatch.
+    Returns (carry, trace) with trace leaves (B, T, ...); `mark` as in
+    `batched_rollout`."""
+    def control(obs, ref, wcarry, ref_is_new):
+        return wbc.wbc_step(model, cparams, qparams, obs, ref, wcarry, ref_is_new)
+
+    return _loop(planner_fn, planner_ratio, carry, commands, scenario, control,
+                 model if sim_model is None else sim_model, sparams, False, mark)
+
+
+def closed_loop_rollout(model: RobotModel, cparams: ControllerParams, pparams: PlannerParams,
+                        qparams: QPSolverParams, sparams: world.SimParams, carry: RolloutCarry,
+                        commands, scenario=None, sim_model: RobotModel | None = None,
+                        mark: Callable[[int, str], None] | None = None):
+    """`rollout` with the static-walk planner (the reference's
+    configuration), ticked every round(loop_rate * planner dt) control
+    steps."""
+    ratio = int(round(cparams.loop_rate * pparams.dt))
+    return rollout(model, cparams, qparams, sparams,
+                   lambda s, c: gait.planner_step(pparams, s, c), ratio, carry, commands,
+                   scenario, sim_model, mark)
+
+
+def trot_rollout(model: RobotModel, cparams: ControllerParams, tparams: trot.TrotParams,
+                 qparams: QPSolverParams, sparams: world.SimParams, carry: RolloutCarry,
+                 commands, scenario=None, sim_model: RobotModel | None = None,
+                 mark: Callable[[int, str], None] | None = None):
+    """`rollout` with the trot planner, ticked every
+    max(1, round(loop_rate * trot dt)) control steps (every step by
+    default); `carry` must hold a trot state (`trot.init_trot_state`)."""
+    ratio = max(1, int(round(cparams.loop_rate * tparams.dt)))
+    return rollout(model, cparams, qparams, sparams,
+                   lambda s, c: trot.trot_step(tparams, s, c), ratio, carry, commands,
+                   scenario, sim_model, mark)

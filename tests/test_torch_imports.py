@@ -200,12 +200,17 @@ def test_unported_options_raise():
                 dict(drop_approx_rank=1)):
         with pytest.raises(NotImplementedError, match="not ported"):
             step(QPSolverParams(**bad))
-    with pytest.raises(NotImplementedError):
+    # the torch backend (the JAX package's "xla" path) runs; a backend of
+    # neither name is a ValueError
+    with pytest.raises(ValueError, match="qp_backend"):
         step(qp_backend="xla")
+    assert len(step(qp_backend="torch")) == 3
     H, A, g, l, u = _cpu_problem()[:5]
-    with pytest.raises(NotImplementedError, match="kernel path"):
-        qp.solve_batched(qp.QPData(H=H, g=g, A=A, l=l, u=u),
-                         qp.QPState.zeros(3, 6, 8, torch.float64, "cpu"), backend="torch")
+    data, warm = qp.QPData(H=H, g=g, A=A, l=l, u=u), qp.QPState.zeros(3, 6, 8, torch.float64,
+                                                                       "cpu")
+    assert len(qp.solve_batched(data, warm, backend="torch")) == 2
+    with pytest.raises(ValueError, match="backend"):
+        qp.solve_batched(data, warm, backend="xla")
     # sigma > 0, a warm-iterated polish Schur inverse, a step without a
     # cache and exact derivatives (every setup route) are ported now: they run
     for ok in (dict(sigma=1e-6), dict(ns_warm_iters_polish=1)):
@@ -226,7 +231,8 @@ def test_tf32_matmul_is_off():
 def test_exact_setup_takes_the_plain_version_only_for_cpu_tensors():
     """The exact mode's wrapper branches on the tensors' device alone: a CPU
     tensor runs `wbc_setup`'s exact branch and counts a plain call under its
-    own name; no `NotImplementedError` is left for exact derivatives."""
+    own name; no `NotImplementedError` is left for exact derivatives (none
+    is left in the control step at all: both QP backends are ported)."""
     import inspect
 
     from quadrupedwholebodycontroller_tpu_torch.control import wbc
@@ -238,5 +244,5 @@ def test_exact_setup_takes_the_plain_version_only_for_cpu_tensors():
     wsrc = inspect.getsource(wbc)
     raises = [wsrc[i:i + 160] for i in range(len(wsrc))
               if wsrc.startswith("raise NotImplementedError", i)]
-    assert raises and not any("exact" in r for r in raises)   # qp_backend only
+    assert not any("exact" in r for r in raises)
     assert set(setup.LAUNCHES) == {"setup_batched", "setup_batched_exact"}
