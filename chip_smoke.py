@@ -50,15 +50,28 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  It
      planner -> control step -> physics) at B = 4096 for 500 control steps,
      with finite differences, and with exact derivatives at `rescue_batch` =
      2048 (printed, over the first 200 steps, which hold its burst) and with
-     the rescue sized to the burst (asserted).
+     the rescue sized to the burst (asserted),
+  8. drives the robustness sweep: one control period of the simulator with
+     one payload model per scenario at B = 4096, held scenario by scenario
+     against each simulated alone; `parallel.sharded_sweep_step` under an
+     NCCL process group of one rank (B = 4096, the CLI's scenarios from the
+     seed: friction, payload, a push, forward speeds; the walk for 400
+     control steps and the trot for 200), the kernels launched each step
+     and no plain version, its metrics bit for bit those of the same batch
+     through `batched_rollout` and `sweep_metrics` without a group;
+     `sharded_wbc_step` over two recorded steps, bit for bit
+     `wbc_step_batched`; and the CLI's `sweep` in this process.
 
 Every line it prints is one JSON object; the last is
 `{"ok": true, "device": {...}}`.  Any failed check raises.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -66,6 +79,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -74,6 +88,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from quadrupedwholebodycontroller_tpu_torch import replay  # noqa: E402
+from quadrupedwholebodycontroller_tpu_torch.cli import main as cli  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.config import (  # noqa: E402
     ControllerParams,
     PlannerParams,
@@ -83,6 +98,7 @@ from quadrupedwholebodycontroller_tpu_torch.control import wbc  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.models import anymal_d_model  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.models.robot_model import RobotModel  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops import kernels, qp  # noqa: E402
+from quadrupedwholebodycontroller_tpu_torch.ops import kinematics  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (  # noqa: E402
     admm,
     admm_zy,
@@ -96,8 +112,20 @@ from quadrupedwholebodycontroller_tpu_torch.ops.linalg import (  # noqa: E402
     ns_inverse,
     ns_inverse_warm_shared,
 )
+from quadrupedwholebodycontroller_tpu_torch.parallel import (  # noqa: E402
+    make_mesh,
+    shard_batch,
+    sharded_sweep_step,
+    sharded_wbc_step,
+    sweep_metrics,
+)
+from quadrupedwholebodycontroller_tpu_torch.parallel.sweep import gait_planner  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.planner import gait, trot  # noqa: E402
-from quadrupedwholebodycontroller_tpu_torch.sim import SimParams, rollout  # noqa: E402
+from quadrupedwholebodycontroller_tpu_torch.sim import SimParams, rollout, world  # noqa: E402
+from quadrupedwholebodycontroller_tpu_torch.sim.scenario import (  # noqa: E402
+    Scenario,
+    apply_payload,
+)
 
 DEV = "cuda"
 N, M, KBLK = 42, 70, 12
@@ -1676,6 +1704,272 @@ def closed_loops():
     return {**out, "tracking_rms_exact_over_fd": ratio}
 
 
+# --------------------------------------------------------------------------
+# the robustness sweep: per-scenario payload physics, `parallel/` under a
+# process group, the sharded control step, and the CLI's sweep
+# --------------------------------------------------------------------------
+
+SWEEP_STEPS = (("walk", 400), ("trot", 200))
+SWEEP_STAND = 40       # the CLI's forward speeds start at control step 40
+PAYLOAD_SAMPLES = 8
+PAYLOAD_TOL = 1e-5     # share of max(1, |x|): float32, the batch against each alone
+
+
+def _free_port() -> int:
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        return s_.getsockname()[1]
+
+
+def sweep_inputs(gait_name: str, steps: int):
+    """The CLI's sweep from the smoke's seed: forward speeds uniform in
+    0-0.8 m/s from control step 40, `Scenario.random_batch` (friction
+    0.5-1.2, payload 0-10 kg, one 60 N push of 40 control steps at a random
+    onset), every scenario at the reset pose with the gait's planner state.
+    (carry, commands, scenario), float32 on the card."""
+    g = torch.Generator().manual_seed(SEED)
+    vx = 0.8 * torch.rand(BATCH, generator=g, dtype=torch.float64)
+    cmds = torch.zeros((BATCH, steps, 3), dtype=torch.float64)
+    cmds[:, SWEEP_STAND:, 0] = vx[:, None]
+    scen = Scenario.random_batch(g, BATCH, steps, torch.float32, DEV)
+    model = anymal_d_model(torch.float32, DEV)
+    planner_state = (trot.init_trot_state(trot.TrotParams(), BATCH, torch.float32, DEV)
+                     if gait_name == "trot" else None)
+    carry = rollout.init_rollout_carry(model, ControllerParams(), BATCH, PlannerParams(),
+                                       torch.float32, DEV, planner_state=planner_state)
+    return carry, cmds.to(DEV, torch.float32), scen
+
+
+def payload_physics():
+    """One control period of `sim_control_period` at B = 4096 with one
+    payload model per scenario (`apply_payload` on the batch's payloads),
+    feet 2 mm in the ground, per-scenario friction and push, torques and
+    velocities from the seed; 8 sampled scenarios held against each
+    simulated alone with its own shared model (`apply_payload` at its scalar
+    payload), to PAYLOAD_TOL of max(1, |x|) per state leaf.  Device ms of the
+    period with the per-scenario models and with the nominal model."""
+    rng = np.random.default_rng(SEED + 7)
+    model = anymal_d_model(torch.float32, DEV)
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=DEV)
+    scen = Scenario.random_batch(torch.Generator().manual_seed(SEED + 7), BATCH, 1,
+                                 torch.float32, DEV)
+    carry = rollout.init_rollout_carry(model, ControllerParams(), BATCH, PlannerParams(),
+                                       torch.float32, DEV)
+    sim = carry.sim
+    kin = kinematics.forward_kinematics(model, sim.base_R, sim.base_p, sim.q)
+    base_p = sim.base_p.clone()
+    base_p[:, 2] -= kin.frame_p[..., 2].mean(-1) + 0.002      # feet 2 mm in the ground
+    state = sim._replace(base_p=base_p, u=f32(0.2 * rng.standard_normal((BATCH, 18))))
+    tau = f32(30.0 * rng.standard_normal((BATCH, 12)))
+    push = scen.push_wrench[:, 0].contiguous()     # T = 1: every push starts at step 0
+    sim_model = apply_payload(model, scen.payload_mass, scen.payload_com)
+    args = (tau, SimParams(), scen.sim_friction, push)
+    got = world.sim_control_period(sim_model, state, *args)
+    rows = np.random.default_rng(SEED + 8).choice(BATCH, PAYLOAD_SAMPLES, replace=False)
+    errs = {k: 0.0 for k in world.SimState._fields}
+    for i in rows:
+        alone = world.sim_control_period(
+            apply_payload(model, scen.payload_mass[i], scen.payload_com[i]),
+            world.SimState(*(x[i:i + 1] for x in state)), tau[i:i + 1], SimParams(),
+            scen.sim_friction[i:i + 1], push[i:i + 1])
+        for k in errs:
+            a, b = getattr(got, k)[i:i + 1].double(), getattr(alone, k).double()
+            errs[k] = max(errs[k], float((a - b).abs().max() / max(1.0, float(b.abs().max()))))
+    shared = world.sim_control_period(model, state, *args)
+    moved = float((shared.u - got.u).abs().max())
+    out = {"batch": BATCH, "dtype": "float32", "samples": [int(i) for i in rows],
+           "max_share_of_scale": errs, "tolerance": PAYLOAD_TOL,
+           "payload_kg": [float(scen.payload_mass.min()), float(scen.payload_mass.max())],
+           "max_abs_du_vs_nominal_model": moved,
+           "ms_per_control_period_per_scenario_models": time_ms(
+               lambda: world.sim_control_period(sim_model, state, *args), reps=3, warmup=1),
+           "ms_per_control_period_nominal_model": time_ms(
+               lambda: world.sim_control_period(model, state, *args), reps=3, warmup=1)}
+    if max(errs.values()) > PAYLOAD_TOL or not moved > 0.0 \
+            or not all(bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError(f"payload physics: {out}")
+    return out
+
+
+def _metrics(m) -> dict:
+    return {k: float(v) for k, v in m._asdict().items()}
+
+
+def run_sweep(mesh, gait_name: str, steps: int):
+    """`sharded_sweep_step` over this rank's shard (the whole batch on one
+    rank): B = 4096, `steps` control steps, float32, the kernel backend.
+    Stage times from CUDA events at the stage boundaries; launches and
+    `all_reduce` calls counted over the run.  Returns (summary, metrics)."""
+    model = anymal_d_model(torch.float32, DEV)
+    step = sharded_sweep_step(model, ControllerParams(), PlannerParams(), QPSolverParams(),
+                              SimParams(), mesh, gait_name)
+    step(*shard_batch(sweep_inputs(gait_name, 3), mesh))      # warm-up, not counted
+    inputs = shard_batch(sweep_inputs(gait_name, steps), mesh)
+    events, reduces = {}, []
+
+    def mark(k, stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[k, stage] = ev
+
+    def counted(*a, **kw):
+        reduces.append(kw.get("op"))
+        return all_reduce(*a, **kw)
+
+    all_reduce = dist.all_reduce
+    dist.all_reduce = counted
+    try:
+        kernels.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, metrics = step(*inputs, mark=mark)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = all_reduce
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    span = lambda a, b: [events[k, a].elapsed_time(events[k, b]) for k in range(steps)]
+    control_ms, sim_ms = span("control", "sim"), span("sim", "end")
+    step_ms = [a + b + c for a, b, c in zip(span("planner", "control"), control_ms, sim_ms)]
+    m = _metrics(metrics)
+    summary = {
+        "gait": gait_name, "batch": BATCH, "steps": steps, "dtype": "float32",
+        "mesh": list(mesh.shape), "ranks": mesh.size, "backend": dist.get_backend(),
+        "ms_per_control_step": wall_s * 1e3 / steps,
+        "control_steps_per_s": BATCH * steps / wall_s,
+        "ms_per_control_step_events_median": statistics.median(step_ms),
+        "control_ms_median": statistics.median(control_ms),
+        "sim_ms_median": statistics.median(sim_ms),
+        "sim_share": sum(sim_ms) / sum(step_ms),
+        "metrics": m,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "all_reduce_calls": len(reduces),
+        "all_reduce_ops": sorted({str(op) for op in reduces}),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "state_finite": all(bool(torch.isfinite(t).all()) for t in carry.sim),
+    }
+    if min(launches[K3], launches[K1], launches[K2]) < steps or any(plain.values()):
+        raise AssertionError(f"sweep ({gait_name}): launches {launches}, plain {plain}")
+    if m["n_scenarios"] != BATCH or not all(np.isfinite(v) for v in m.values()) \
+            or len(reduces) != 2 or not summary["state_finite"]:
+        raise AssertionError(f"sweep ({gait_name}): {summary}")
+    return summary, metrics
+
+
+def sweep_reference(gait_name: str, steps: int):
+    """The same batch through `batched_rollout` (one payload model per
+    scenario) and `sweep_metrics` on a mesh without a group.  Returns the
+    metrics and, from the trace, where the KKT residuals exceed the rescue
+    threshold (printed: the sweep's tail)."""
+    model = anymal_d_model(torch.float32, DEV)
+    carry, cmds, scen = sweep_inputs(gait_name, steps)
+    planner_fn, ratio = gait_planner(gait_name, ControllerParams(), PlannerParams())
+    qpp = QPSolverParams()
+    _, trace = rollout.batched_rollout(
+        model, ControllerParams(), qpp, SimParams(), planner_fn, ratio, carry,
+        cmds, scen, apply_payload(model, scen.payload_mass, scen.payload_com))
+    kkt = trace.qp_kkt
+    flagged = kkt > qpp.rescue_threshold
+    per_step = flagged.sum(0)
+    worst = int(torch.argmax(kkt.amax(1)))
+    t_worst = int(torch.argmax(kkt[worst]))
+    pushed = torch.nonzero(scen.push_wrench[worst, :, :2].abs().sum(-1)).flatten()
+    tail = {"flagged_scenario_steps": int(flagged.sum()),
+            "flagged_scenarios": int(flagged.any(1).sum()),
+            "steps_with_flagged": int((per_step > 0).sum()),
+            "max_flagged_in_a_step": int(per_step.max()),
+            "kkt_at_least_0_5": int((kkt >= 0.5).sum()),
+            "worst": {"scenario": worst, "step": t_worst, "kkt": float(kkt[worst, t_worst]),
+                      "payload_kg": float(scen.payload_mass[worst]),
+                      "friction": float(scen.sim_friction[worst]),
+                      "push_steps": [int(pushed.min()), int(pushed.max())] if len(pushed) else [],
+                      "vx": float(cmds[worst, -1, 0]),
+                      "com_z_min": float(trace.com_pos[worst, :, 2].min())}}
+    return sweep_metrics(trace, make_mesh()), tail
+
+
+def flagship_step(mesh):
+    """`sharded_wbc_step` at B = 4096 over the recorded walk's steps 0 (cold:
+    no valid cache) and 1 (warm), with the per-scenario offsets of the
+    main path, against `wbc_step_batched` on the same inputs, bit for bit."""
+    model, cp, qpp = anymal_d_model(torch.float32, DEV), ControllerParams(), QPSolverParams()
+    offsets = replay.make_offsets(BATCH, torch.float32, np.random.default_rng(SEED + 1), DEV)
+    inputs = [replay.step_inputs(TRAJ, t, BATCH, torch.float32, offsets, DEV)[:2]
+              for t in (0, 1)]
+    step = sharded_wbc_step(model, cp, qpp, mesh)
+
+    def run(fn):
+        carry = wbc.init_carry(BATCH, torch.float32, DEV)
+        cache = qp.make_cache(BATCH, N, M, qpp, torch.float32, DEV)
+        outs = []
+        for i, (obs, ref) in enumerate(inputs):
+            out, carry, cache = fn(obs, ref, carry, cache, i > 0)
+            outs.append((out, carry, cache))
+        return outs
+
+    kernels.reset_counts()
+    got = run(lambda o, r, c, ca, v: step(*shard_batch((o, r, c, ca), mesh), v))
+    launches = kernels.launch_counts()
+    want = run(lambda o, r, c, ca, v: wbc.wbc_step_batched(model, cp, qpp, o, r, c, True,
+                                                           "kernel", ca, v))
+    flat = lambda tree: [tree] if isinstance(tree, torch.Tensor) else \
+        [x for v in tree for x in flat(v)]
+    pairs = list(zip(flat(got), flat(want)))
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    kkt = got[1][0].qp_info.kkt_residual
+    out = {"batch": BATCH, "steps": "0 (cold), 1 (warm)", "tensors_compared": len(pairs),
+           "tensors_differing": differ, "max_kkt_warm": float(kkt.max()),
+           "launches": {k: v for k, v in launches.items() if v}}
+    if differ or launches[K3] != 2 or not bool(torch.isfinite(kkt).all()):
+        raise AssertionError(f"flagship: {out}")
+    return out
+
+
+def sweeps():
+    """The sweep's phases: the walk (400 control steps) and the trot (200)
+    through `sharded_sweep_step` under an NCCL process group of one rank,
+    and the flagship step under the same group; then, without a group, the
+    same batches through `batched_rollout` and `sweep_metrics`, whose
+    metrics must equal the sweep's bit for bit.  `max_kkt` and
+    `fallen_fraction` are printed, not held to a bar."""
+    os.environ["MASTER_ADDR"] = "localhost"
+    os.environ["MASTER_PORT"] = str(_free_port())
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="env://", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        if not (mesh.distributed and mesh.size == 1 and mesh.device.type == "cuda"):
+            raise AssertionError(f"sweep: mesh {mesh}")
+        runs = {g: run_sweep(mesh, g, steps) for g, steps in SWEEP_STEPS}
+        flagship = flagship_step(mesh)
+    finally:
+        dist.destroy_process_group()
+    out = {}
+    for g, steps in SWEEP_STEPS:
+        summary, metrics = runs[g]
+        ref, summary["kkt_tail"] = sweep_reference(g, steps)
+        summary["bit_identical_to_batched_rollout"] = all(
+            torch.equal(a, b) for a, b in zip(metrics, ref))
+        if not summary["bit_identical_to_batched_rollout"]:
+            raise AssertionError(f"sweep ({g}): {_metrics(metrics)} against the loop's "
+                                 f"{_metrics(ref)}")
+        out[g] = summary
+    return out, flagship
+
+
+def cli_sweep():
+    """`cli.main(["sweep", "--batch", "256", "--seconds", "0.25"])` in this
+    process (no process group: one rank on the card); its line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["sweep", "--batch", "256", "--seconds", "0.25"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    if not line.startswith("sweep B=256 T=100 on 1 devices") or "fallen=" not in line:
+        raise AssertionError(f"cli sweep: {buf.getvalue()}")
+    return line
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1714,6 +2008,9 @@ def main():
     no_cache = no_cache_step()
     parity = torque_parity()
     loops = closed_loops()
+    payload = payload_physics()
+    sweep_runs, flagship = sweeps()
+    cli_line = cli_sweep()
     # each kernel's row carries the launches of the run that drives it: the
     # main path's K3, K1, K2; the torch path's K4 (its code runs inside K3 on
     # the main path); the sigma path's K5; the generic path's K7 (sigma 0);
@@ -1740,6 +2037,10 @@ def main():
     emit({"standalone_kernels": standalone[1], **tag})
     emit({"torque_parity": parity, **tag})
     emit({"rollout": loops, **tag})
+    emit({"payload_physics": payload, **tag})
+    emit({"sweep": sweep_runs, **tag})
+    emit({"flagship": flagship, **tag})
+    emit({"cli_sweep": cli_line, **tag})
     emit({"kernels": list(rows.values()), "problem": stats, **tag})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -123,3 +123,43 @@ class QPSolverParams:
     rescue_round2_batch: int = 32  # cap of the rescue's compacted round 2+
     solve_layout: str = "minor"   # kept for parity and ignored: the port
                                   # is batch-major end to end
+
+
+# reference YAML key -> ControllerParams field (config/params_controller.yaml)
+_YAML_CONTROLLER_KEYS = {
+    "friction": "friction",
+    "loopRate": "loop_rate",
+    "maxTorque": "max_torque",
+    "kpValue": "kp",
+    "kpValueZ": "kp_z",
+    "kdValue": "kd",
+    "kiValue": "ki",
+    "kpSwingValue": "kp_swing",
+    "kdSwingValue": "kd_swing",
+    "slackWeight": "slack_weight",
+    "initialReferencePose": "initial_reference_pose",
+}
+# PlannerParams fields under their own names (config/params_planner.yaml)
+_YAML_PLANNER_KEYS = ("step_length", "height_control_point", "x_offset", "y_offset",
+                      "step_duration", "body_height", "body_final_velocity", "dt")
+
+
+def load_yaml_params(path: str) -> dict:
+    """A reference-format YAML (the params_controller.yaml /
+    params_planner.yaml key names) as typed parameters: {"controller":
+    ControllerParams} and / or {"planner": PlannerParams}, for the keys the
+    file has (defaults for the rest).  Needs PyYAML, imported here only."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    ctrl = {v: raw[k] for k, v in _YAML_CONTROLLER_KEYS.items() if k in raw}
+    plan = {k: raw[k] for k in _YAML_PLANNER_KEYS if k in raw}
+    out = {}
+    if ctrl:
+        if "initial_reference_pose" in ctrl:
+            ctrl["initial_reference_pose"] = tuple(ctrl["initial_reference_pose"])
+        out["controller"] = ControllerParams(**ctrl)
+    if plan:
+        out["planner"] = PlannerParams(**plan)
+    return out

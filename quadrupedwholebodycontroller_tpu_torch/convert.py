@@ -20,6 +20,7 @@ from quadrupedwholebodycontroller_tpu_torch.control.wbc import (
 )
 from quadrupedwholebodycontroller_tpu_torch.models.robot_model import (
     _TENSOR_FIELDS,
+    PER_SCENARIO_FIELDS,
     RobotModel,
 )
 from quadrupedwholebodycontroller_tpu_torch.ops.qp import QPCache, QPData, QPState
@@ -40,10 +41,23 @@ def _b(a, device):
 
 
 def model_from_numpy(d: dict, dtype=torch.float32, device="cuda") -> RobotModel:
-    """d: the static topology tuples plus every numeric leaf as an array."""
+    """d: the static topology tuples plus every numeric leaf as an array.
+    Batched leaves (a leading scenario axis, as a vectorised map over
+    `apply_payload` gives every leaf) make one model per scenario: mass,
+    com and inertia keep the axis; every other leaf must be the same in
+    every scenario and is taken once (a ValueError otherwise)."""
+    leaves = {}
+    for k, rank in _TENSOR_FIELDS.items():
+        a = np.asarray(d[k])
+        if a.ndim == rank + 1 and k not in PER_SCENARIO_FIELDS:
+            if not (a == a[:1]).all():
+                raise ValueError(f"model leaf {k!r} differs between scenarios: only "
+                                 f"{', '.join(PER_SCENARIO_FIELDS)} may")
+            a = a[0]
+        leaves[k] = _t(a, dtype, device)
     return RobotModel(
         **{k: (d[k] if isinstance(d[k], str) else tuple(d[k])) for k in _STATIC_FIELDS},
-        **{k: _t(d[k], dtype, device) for k in _TENSOR_FIELDS},
+        **leaves,
     )
 
 

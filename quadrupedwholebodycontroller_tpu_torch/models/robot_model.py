@@ -2,7 +2,10 @@
 
 Every field is either a static Python tuple (tree topology, resolved in
 Python while the batched ops are issued) or a tensor of numeric parameters
-on one device.
+on one device.  A simulated model may hold one payload per scenario
+(`sim.scenario.apply_payload`): then `mass`, `com` and `inertia` carry a
+leading scenario axis, (B, nb), (B, nb, 3), (B, nb, 3, 3), and every other
+leaf is shared.
 """
 from __future__ import annotations
 
@@ -13,11 +16,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-_TENSOR_FIELDS = (
-    "joint_R", "joint_p", "joint_axis", "mass", "com", "inertia",
-    "frame_R", "frame_p", "joint_lower", "joint_upper", "joint_effort",
-    "joint_velocity",
+# the numeric fields and the rank of each in a shared model
+_TENSOR_FIELDS = dict(
+    joint_R=3, joint_p=2, joint_axis=2, mass=1, com=2, inertia=3, frame_R=3, frame_p=2,
+    joint_lower=1, joint_upper=1, joint_effort=1, joint_velocity=1,
 )
+# the fields that carry a leading scenario axis in a model per scenario
+PER_SCENARIO_FIELDS = ("mass", "com", "inertia")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,9 +38,9 @@ class RobotModel:
     joint_R: torch.Tensor     # (nj, 3, 3) joint frame rotation in parent body frame
     joint_p: torch.Tensor     # (nj, 3)    joint frame origin in parent body frame
     joint_axis: torch.Tensor  # (nj, 3)    rotation axis in joint frame
-    mass: torch.Tensor        # (nb,)
-    com: torch.Tensor         # (nb, 3)    body CoM in body frame
-    inertia: torch.Tensor     # (nb, 3, 3) inertia about body CoM, body frame
+    mass: torch.Tensor        # (nb,)      (B, nb) with one model per scenario
+    com: torch.Tensor         # (nb, 3)    body CoM in body frame (or (B, nb, 3))
+    inertia: torch.Tensor     # (nb, 3, 3) inertia about body CoM, body frame (or (B, ...))
     frame_R: torch.Tensor     # (nf, 3, 3) frame rotation in owning body frame
     frame_p: torch.Tensor     # (nf, 3)
     joint_lower: torch.Tensor    # (nj,)
@@ -57,8 +62,14 @@ class RobotModel:
         return 6 + self.num_joints
 
     @property
+    def per_scenario(self) -> bool:
+        """True where mass, com and inertia carry a leading scenario axis."""
+        return self.mass.ndim > 1
+
+    @property
     def total_mass(self) -> torch.Tensor:
-        return torch.sum(self.mass)
+        """() or, per scenario, (B,)."""
+        return torch.sum(self.mass, dim=-1)
 
     def to(self, dtype=None, device=None) -> "RobotModel":
         return dataclasses.replace(

@@ -8,7 +8,8 @@ gravity force, energies and forward dynamics.
     with the velocity-product accelerations (u_dot = 0) from a closed-form
     level recursion.
 
-Leading batch dimensions are written `...`.
+Leading batch dimensions are written `...`; mass, com and inertia may carry
+the scenario axis too (`K.model_axes`).
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ _cross = torch.linalg.cross
 def world_inertias(model: RobotModel, kin: K.KinState):
     """(..., nb, 3, 3) body inertias about their CoM in world axes."""
     return torch.einsum(
-        "...bij,bjk,...blk->...bil", kin.body_R, model.inertia, kin.body_R
+        f"...bij,{K.model_axes(model)}bjk,...blk->...bil", kin.body_R, model.inertia,
+        kin.body_R
     )
 
 
@@ -41,28 +43,29 @@ def mass_matrix_from_parts(model: RobotModel, kin: K.KinState,
       M[3:6,6:]  = sum m_b r_b x jq_b + sum Iw_b jw_b
       M[6:,6:]   = sum m_b jq^T jq + jw^T Iw jw
     """
-    m = model.mass
+    m, b = model.mass, K.model_axes(model) + "b"
     r, jq, jw = parts.r, parts.jq, parts.jw
     Iw = world_inertias(model, kin)
     eye3 = torch.eye(3, dtype=r.dtype, device=r.device)
 
-    top_mid = -skew(torch.einsum("b,...ba->...a", m, r))
-    top_right = torch.einsum("b,...bja->...aj", m, jq)              # (..., 3, nj)
+    top_mid = -skew(torch.einsum(f"{b},...ba->...a", m, r))
+    top_right = torch.einsum(f"{b},...bja->...aj", m, jq)           # (..., 3, nj)
     rot = (
-        torch.einsum("b,...b->...", m, torch.sum(r * r, dim=-1))[..., None, None] * eye3
-        - torch.einsum("b,...ba,...bc->...ac", m, r, r)
+        torch.einsum(f"{b},...b->...", m, torch.sum(r * r, dim=-1))[..., None, None] * eye3
+        - torch.einsum(f"{b},...ba,...bc->...ac", m, r, r)
         + torch.sum(Iw, dim=-3)
     )
     rxjq = _cross(r[..., :, None, :].expand_as(jq), jq)             # (..., nb, nj, 3)
     mid_right = (
-        torch.einsum("b,...bja->...aj", m, rxjq)
+        torch.einsum(f"{b},...bja->...aj", m, rxjq)
         + torch.einsum("...bac,...bjc->...aj", Iw, jw)
     )
-    jj = torch.einsum("b,...bja,...bka->...jk", m, jq, jq) + torch.einsum(
+    jj = torch.einsum(f"{b},...bja,...bka->...jk", m, jq, jq) + torch.einsum(
         "...bja,...bac,...bkc->...jk", jw, Iw, jw
     )
     top = torch.cat(
-        [(model.total_mass * eye3).expand_as(top_mid), top_mid, top_right], dim=-1
+        [(model.total_mass[..., None, None] * eye3).expand_as(top_mid), top_mid, top_right],
+        dim=-1
     )
     mid = torch.cat([top_mid.transpose(-1, -2), rot, mid_right], dim=-1)
     bot = torch.cat(
@@ -159,13 +162,14 @@ def mass_matrix(model: RobotModel, kin: K.KinState, J=None):
         return mass_matrix_from_parts(model, kin, K.body_com_jacobian_parts(model, kin))
     Jv, Jw = J[..., :3, :], J[..., 3:, :]
     Iw = world_inertias(model, kin)
-    return torch.einsum("b,...bik,...bil->...kl", model.mass, Jv, Jv) + torch.einsum(
+    return torch.einsum(f"{K.model_axes(model)}b,...bik,...bil->...kl", model.mass, Jv,
+                        Jv) + torch.einsum(
         "...bik,...bij,...bjl->...kl", Jw, Iw, Jw)
 
 
 def _bias_from_accelerations(model, kin, parts, a_c, w, alpha):
     Iw = world_inertias(model, kin)
-    F = model.mass[:, None] * a_c
+    F = model.mass[..., None] * a_c
     N = torch.einsum("...bij,...bj->...bi", Iw, alpha) + _cross(
         w, torch.einsum("...bij,...bj->...bi", Iw, w))
     return project_forces_from_parts(parts, F, N)
@@ -200,7 +204,7 @@ def gravity_force(model: RobotModel, kin: K.KinState, g_vec, parts=None):
     if parts is None:
         parts = K.body_com_jacobian_parts(model, kin)
     g = torch.as_tensor(g_vec, dtype=parts.r.dtype, device=parts.r.device)
-    F = (model.mass[:, None] * g).expand_as(parts.r)
+    F = (model.mass[..., None] * g).expand_as(parts.r)
     return project_forces_from_parts(parts, F, torch.zeros_like(F))
 
 

@@ -1,7 +1,10 @@
 """Floating-base forward kinematics and geometric Jacobians, batched.
 
 Every function takes tensors with arbitrary leading batch dimensions
-(written `...` below; the control cycle uses one, the scenario batch).
+(written `...` below; the control cycle uses one, the scenario batch).  The
+model's mass, com and inertia may carry the scenario axis too (one payload
+model per scenario, `RobotModel.per_scenario`): their contractions then keep
+it (`model_axes`), and the shared model's keep their own operations.
 
 Conventions (iDynTree MIXED representation, as the reference uses it):
   * generalized velocity u = [v_base_world (3); omega_world (3); qdot (nj)]
@@ -51,6 +54,12 @@ def _levels(parent: tuple) -> tuple:
     return tuple(out)
 
 
+def model_axes(model: RobotModel) -> str:
+    """The einsum prefix of the mass, com and inertia leaves: "" for a
+    shared model, "..." for one model per scenario."""
+    return "..." if model.per_scenario else ""
+
+
 def forward_kinematics(model: RobotModel, base_R, base_p, q) -> KinState:
     """FK over the whole tree, one batched op-set per depth level.
 
@@ -82,7 +91,8 @@ def forward_kinematics(model: RobotModel, base_R, base_p, q) -> KinState:
 
     body_R = torch.stack(R_list, dim=-3)
     body_p = torch.stack(p_list, dim=-2)
-    body_com_w = body_p + torch.einsum("...bij,bj->...bi", body_R, model.com)
+    body_com_w = body_p + torch.einsum(f"...bij,{model_axes(model)}bj->...bi", body_R,
+                                       model.com)
     fb = list(model.frame_body)
     frame_R = body_R[..., fb, :, :] @ model.frame_R
     frame_p = body_p[..., fb, :] + torch.einsum(
@@ -193,7 +203,8 @@ def frame_jacobians(model: RobotModel, kin: KinState):
 
 def robot_com(model: RobotModel, kin: KinState):
     """(..., 3) total CoM."""
-    return torch.einsum("b,...bi->...i", model.mass, kin.body_com_w) / model.total_mass
+    return torch.einsum(f"{model_axes(model)}b,...bi->...i", model.mass,
+                        kin.body_com_w) / model.total_mass[..., None]
 
 
 def body_com_jacobians(model: RobotModel, kin: KinState):
@@ -217,8 +228,8 @@ def frame_velocities(model: RobotModel, kin: KinState, u):
 def com_velocity(model: RobotModel, kin: KinState, u):
     """(..., 3) CoM linear velocity."""
     J = body_com_jacobians(model, kin)
-    v = torch.einsum("b,...bij,...j->...i", model.mass, J[..., :3, :], u)
-    return v / model.total_mass
+    v = torch.einsum(f"{model_axes(model)}b,...bij,...j->...i", model.mass, J[..., :3, :], u)
+    return v / model.total_mass[..., None]
 
 
 def state_flow(base_R, base_p, q, u):

@@ -161,13 +161,12 @@ def batched_rollout(
 
     A scenario that falls (CoM below 0.2 m or above 2 m, a speed above 50)
     or whose state is no longer finite is frozen where it stands, so it
-    cannot poison the batch.  `mark(k, stage)`, if given, is called at the
+    cannot poison the batch.  The controller uses the nominal `model`; the
+    physics runs `sim_model` if given (a model mismatch: one model shared by
+    the batch, or one payload model per scenario from
+    `scenario.apply_payload`).  `mark(k, stage)`, if given, is called at the
     start of control step k's stages "planner", "control", "sim" and at its
     "end" (for timing; it must not change the state)."""
-    if sim_model is not None:
-        raise NotImplementedError(
-            "sim_model (per-scenario payload models for the physics): the "
-            "parallel-sweep slice of the port")
     cache = make_cache(commands.shape[0], QP_NUM_VARS, QP_NUM_CONSTRAINTS, qparams,
                        commands.dtype, commands.device)
     cache_valid = False
@@ -180,8 +179,8 @@ def batched_rollout(
         cache_valid = True
         return out, wcarry
 
-    return _loop(planner_fn, planner_ratio, carry, commands, scenario, control, model,
-                 sparams, True, mark)
+    return _loop(planner_fn, planner_ratio, carry, commands, scenario, control,
+                 model if sim_model is None else sim_model, sparams, True, mark)
 
 
 @torch.no_grad()
@@ -204,8 +203,9 @@ def rollout(
     `control.wbc.wbc_step` (tensor code, the single-sample solve), and
     nothing is frozen: a scenario that falls keeps running and its torques
     and KKT residuals are recorded as they come.  The controller uses the
-    nominal `model`; `sim_model`, one model shared by the batch (e.g. with
-    a payload, `scenario.apply_payload`), simulates a model mismatch.
+    nominal `model`; `sim_model` (e.g. with a payload,
+    `scenario.apply_payload`; shared by the batch or one per scenario)
+    simulates a model mismatch.
     Returns (carry, trace) with trace leaves (B, T, ...); `mark` as in
     `batched_rollout`."""
     def control(obs, ref, wcarry, ref_is_new):

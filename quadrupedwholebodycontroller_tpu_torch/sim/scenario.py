@@ -2,7 +2,9 @@
 on the base, and a push (one lateral force window) per scenario.
 
 The payload changes the simulated robot only; the controller keeps the
-nominal model (model-mismatch robustness, the realistic condition)."""
+nominal model (model-mismatch robustness, the realistic condition).  A
+sweep simulates one payload model per scenario (`apply_payload` on the
+batch's payloads)."""
 from __future__ import annotations
 
 import dataclasses
@@ -61,18 +63,26 @@ class Scenario(NamedTuple):
 
 
 def apply_payload(model: RobotModel, payload_mass, payload_com) -> RobotModel:
-    """The model with a rigid point payload (a scalar mass at payload_com
-    (3,), base frame) lumped into the base body: its mass, centre of mass
-    and inertia about the new centre of mass."""
+    """The model with a rigid point payload (mass payload_mass at
+    payload_com, base frame) lumped into the base body: its mass, centre of
+    mass and inertia about the new centre of mass.  A scalar payload_mass
+    and payload_com (3,) give a shared model; payload_mass (B,) and
+    payload_com (B, 3) give one model per scenario, whose mass, com and
+    inertia are (B, nb), (B, nb, 3), (B, nb, 3, 3) (`model.per_scenario`),
+    every other leaf shared."""
+    kw = dict(dtype=model.mass.dtype, device=model.mass.device)
+    pm, pc = torch.as_tensor(payload_mass, **kw), torch.as_tensor(payload_com, **kw)
+    lead = pm.shape
     m0, c0 = model.mass[0], model.com[0]
-    m = m0 + payload_mass
-    c = (m0 * c0 + payload_mass * payload_com) / m
+    m = m0 + pm
+    c = (m0 * c0 + pm[..., None] * pc) / m[..., None]
     S0 = spatial.skew(c0 - c)
-    Sp = spatial.skew(payload_com - c)
-    I_new = model.inertia[0] - m0 * (S0 @ S0) - payload_mass * (Sp @ Sp)
+    Sp = spatial.skew(pc - c)
+    I_new = model.inertia[0] - m0 * (S0 @ S0) - pm[..., None, None] * (Sp @ Sp)
+    rest = lambda leaf: leaf[1:].expand(lead + leaf[1:].shape)
     return dataclasses.replace(
         model,
-        mass=torch.cat([m.reshape(1), model.mass[1:]]),
-        com=torch.cat([c[None], model.com[1:]]),
-        inertia=torch.cat([I_new[None], model.inertia[1:]]),
+        mass=torch.cat([m[..., None], rest(model.mass)], dim=-1),
+        com=torch.cat([c[..., None, :], rest(model.com)], dim=-2),
+        inertia=torch.cat([I_new[..., None, :, :], rest(model.inertia)], dim=-3),
     )

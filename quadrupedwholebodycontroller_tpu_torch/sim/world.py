@@ -134,8 +134,8 @@ def sim_control_period(model: RobotModel, state: SimState, tau, params: SimParam
                        friction=None, push_wrench=None) -> SimState:
     """Advance every scenario one control period under the zero-order-held
     torques tau (B, 12), in `params.substeps` physics steps.  friction (B,)
-    and push_wrench (B, 6) are optional per-scenario perturbations
-    (sim/scenario.py)."""
+    and push_wrench (B, 6) are optional per-scenario perturbations, and the
+    model may be one payload model per scenario (sim/scenario.py)."""
     for _ in range(params.substeps):
         state = _substep(model, state, tau, params, friction, push_wrench)
     return state

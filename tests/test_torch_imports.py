@@ -38,6 +38,26 @@ def test_no_jax_and_no_jax_package_import(path):
         assert top != JAX_PKG, (path, mod)
 
 
+def test_optional_packages_are_imported_inside_functions_only():
+    """PyYAML and matplotlib are optional (the card's machine has no PyYAML):
+    no module of the port, nor chip_smoke.py, imports them at module level,
+    and the functions that need them do."""
+    inside = set()
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        for node in top:
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) \
+                else [node.module or ""]
+            assert not any(n.split(".")[0] in ("yaml", "matplotlib") for n in names), path
+        for fn in (n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)):
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Import):
+                    inside.update(a.name.split(".")[0] for a in node.names)
+    assert {"yaml", "matplotlib"} <= inside
+
+
 def test_port_has_the_expected_modules():
     rel = {os.path.relpath(p, PORT) for p in _port_files()}
     for want in ("config.py", "convert.py", "control/wbc.py", "ops/qp.py",
@@ -49,7 +69,9 @@ def test_port_has_the_expected_modules():
                  "ops/kernels/ns_warm.py", "replay.py",
                  "models/anymal.py", "models/robot_model.py",
                  "planner/gait.py", "planner/trot.py", "sim/world.py",
-                 "sim/scenario.py", "sim/rollout.py"):
+                 "sim/scenario.py", "sim/rollout.py", "parallel/mesh.py",
+                 "parallel/sweep.py", "parallel/flagship.py", "runtime/checkpoint.py",
+                 "runtime/native.py", "viz/plots.py", "cli/main.py"):
         assert want in rel, want
     for src in ("common.cuh", "prepare_tail.cuh", "admm_words.cuh", "prepare.cu",
                 "admm_zy.cu", "admm.cu", "polish.cu", "setup.cu", "ns_warm.cu"):

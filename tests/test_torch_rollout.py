@@ -13,7 +13,11 @@ another summation order; one JAX trace, memoised for the module).
 
 On the CPU the port's kernel setup takes its plain version, `wbc_setup`'s
 exact branch (forward-mode AD through the rigid-body code), so this also
-holds that derivation to the JAX kernel's in-kernel tangents."""
+holds that derivation to the JAX kernel's in-kernel tangents.  The physics
+also runs with one model per scenario (`sim_model`), every row nominal,
+against the shared model."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,10 +109,24 @@ def test_the_run_exercises_the_exact_path_and_a_walk():
 
 
 def test_sim_model_waits_for_the_parallel_slice():
+    """`batched_rollout(sim_model=...)` with one model per scenario (mass,
+    com and inertia with a leading scenario axis), every row the nominal
+    model, gives the shared-model run's trace and final state (to 1e-12:
+    the per-scenario contractions sum in another order).  The name is kept
+    from when the argument raised until the parallel-sweep slice."""
     r = _runs()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        rollout.batched_rollout(
-            anymal_d_model(torch.float64, "cpu"), ControllerParams(), QPSolverParams(),
-            SimParams(), lambda s, c: gait.planner_step(PlannerParams(), s, c), RATIO,
-            r["start"], torch.zeros((B, 1, 3), dtype=torch.float64),
-            sim_model=anymal_d_model(torch.float64, "cpu"))
+    tm = anymal_d_model(torch.float64, "cpu")
+    rows = dataclasses.replace(tm, mass=tm.mass.expand(B, -1), com=tm.com.expand(B, -1, -1),
+                               inertia=tm.inertia.expand(B, -1, -1, -1))
+    pp = PlannerParams()
+    carry, trace = rollout.batched_rollout(
+        tm, ControllerParams(exact_derivatives=True), QPSolverParams(), SimParams(),
+        lambda s, c: gait.planner_step(pp, s, c), RATIO, r["start"],
+        torch.as_tensor(_commands()), sim_model=rows)
+    want_carry, want_trace = r["port"]
+    for leaf in rollout.RolloutTrace._fields:
+        got, want = getattr(trace, leaf).numpy(), getattr(want_trace, leaf)
+        assert np.abs(got - want).max() <= 1e-12, leaf
+    for leaf in ("base_R", "base_p", "q", "u", "anchor"):
+        got, want = getattr(carry.sim, leaf).numpy(), getattr(want_carry.sim, leaf)
+        assert np.abs(got - want).max() <= 1e-12, leaf
