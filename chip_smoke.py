@@ -55,12 +55,21 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  It
      one payload model per scenario at B = 4096, held scenario by scenario
      against each simulated alone; `parallel.sharded_sweep_step` under an
      NCCL process group of one rank (B = 4096, the CLI's scenarios from the
-     seed: friction, payload, a push, forward speeds; the walk for 400
-     control steps and the trot for 200), the kernels launched each step
+     seed: friction, payload, a push, forward speeds; the walk and the
+     trot for 200 control steps each), the kernels launched each step
      and no plain version, its metrics bit for bit those of the same batch
      through `batched_rollout` and `sweep_metrics` without a group;
      `sharded_wbc_step` over two recorded steps, bit for bit
-     `wbc_step_batched`; and the CLI's `sweep` in this process.
+     `wbc_step_batched`; and the CLI's `sweep` in this process,
+  9. drives the gradients: the JAX package's differentiability test's
+     closed loop (B = 1, float64, 16 control steps) on the card, where one
+     sign step of log kp lowers its cost, and its gradient over the first
+     10 steps held to the port's own on the CPU; one batched control step at B = 4096 under a gradient on the
+     tensor-code backends, next to the walk's contact switch, with no
+     kernel launched (its times and peak memory); the kernel path refuses a
+     gradient before any launch and runs under `torch.no_grad()`; and the
+     toy quadruped loaded from its URDF, its kinematics and dynamics on the
+     card against the same calls on the CPU.
 
 Every line it prints is one JSON object; the last is
 `{"ok": true, "device": {...}}`.  Any failed check raises.
@@ -68,6 +77,7 @@ Every line it prints is one JSON object; the last is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -98,7 +108,8 @@ from quadrupedwholebodycontroller_tpu_torch.control import wbc  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.models import anymal_d_model  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.models.robot_model import RobotModel  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops import kernels, qp  # noqa: E402
-from quadrupedwholebodycontroller_tpu_torch.ops import kinematics  # noqa: E402
+from quadrupedwholebodycontroller_tpu_torch.ops import dynamics as D  # noqa: E402
+from quadrupedwholebodycontroller_tpu_torch.ops import kinematics, spatial  # noqa: E402
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (  # noqa: E402
     admm,
     admm_zy,
@@ -1709,7 +1720,9 @@ def closed_loops():
 # process group, the sharded control step, and the CLI's sweep
 # --------------------------------------------------------------------------
 
-SWEEP_STEPS = (("walk", 400), ("trot", 200))
+# each gait runs twice (the sweep and its reference loop): 200 steps each
+# keep the script well inside its time limit
+SWEEP_STEPS = (("walk", 200), ("trot", 200))
 SWEEP_STAND = 40       # the CLI's forward speeds start at control step 40
 PAYLOAD_SAMPLES = 8
 PAYLOAD_TOL = 1e-5     # share of max(1, |x|): float32, the batch against each alone
@@ -1927,7 +1940,7 @@ def flagship_step(mesh):
 
 
 def sweeps():
-    """The sweep's phases: the walk (400 control steps) and the trot (200)
+    """The sweep's phases: the walk and the trot (200 control steps each)
     through `sharded_sweep_step` under an NCCL process group of one rank,
     and the flagship step under the same group; then, without a group, the
     same batches through `batched_rollout` and `sweep_metrics`, whose
@@ -1968,6 +1981,168 @@ def cli_sweep():
     if not line.startswith("sweep B=256 T=100 on 1 devices") or "fallen=" not in line:
         raise AssertionError(f"cli sweep: {buf.getvalue()}")
     return line
+
+
+GRAD_LOG_KP0 = float(np.log(600.0))   # the JAX package's differentiability test
+GRAD_STEPS = 16        # its horizon: the cost, d/d log kp and the sign step, on the card
+# the card's f64 gradient held to the port's own on the CPU over the first 10
+# control steps, to 1e-6: over 16 the loop amplifies rounding to ~1e-4 (the
+# JAX package's own gradient moves 4e-5 under a 1e-13 change of log kp)
+GRAD_CPU_STEPS = 10
+GRAD_TOL = 1e-6
+GRAD_SWITCH_STEP = 40       # the recorded walk's first contact switch
+URDF_JOINTS = ("FL_hip", "FL_knee", "FR_hip", "FR_knee",
+               "RL_hip", "RL_knee", "RR_hip", "RR_knee")
+URDF_FEET = ("FL_foot", "FR_foot", "RL_foot", "RR_foot")
+
+
+def _tracking_costs(log_kp, steps, device):
+    """The tracking cost of `tests/test_differentiability.py` over the first
+    t control steps of one rollout of `steps`, for t in (GRAD_CPU_STEPS,
+    steps) (float64, B = 1, standing still)."""
+    model, pp = anymal_d_model(torch.float64, device), PlannerParams()
+    cp = ControllerParams(kp=torch.exp(log_kp))
+    carry = rollout.init_rollout_carry(model, cp, 1, pp, torch.float64, device)
+    _, tr = rollout.closed_loop_rollout(
+        model, cp, pp, QPSolverParams(iterations=40, polish=False), SimParams(substeps=4),
+        carry, torch.zeros((1, steps, 3), dtype=torch.float64, device=device))
+    err2 = (tr.com_pose[0, :, :3] - tr.ref_com_pose[0, :, :3]) ** 2
+    return [torch.mean(err2[:t]) for t in sorted({GRAD_CPU_STEPS, steps})]
+
+
+def _closed_loop_gradient(steps, device):
+    """(costs, d/d log kp, forward s, backward s) of the tracking costs."""
+    log_kp = torch.tensor(GRAD_LOG_KP0, dtype=torch.float64, device=device,
+                          requires_grad=True)
+    t0 = time.perf_counter()
+    costs = _tracking_costs(log_kp, steps, device)
+    vals = [c.item() for c in costs]
+    t1 = time.perf_counter()
+    grads = [torch.autograd.grad(c, log_kp, retain_graph=True)[0].item() for c in costs]
+    return vals, grads, t1 - t0, time.perf_counter() - t1
+
+
+def gradients():
+    """The gradient paths on the card: (a) the JAX package's differentiability
+    test's closed loop (B = 1, float64, T = 16): one sign step of log kp
+    lowers the cost, and the gradient over the first 10 steps equals the
+    port's own on the CPU; (b)
+    one batched control step at B = 4096, float32, on the tensor-code
+    backends under a gradient, next to the walk's contact switch, with no
+    kernel launched; (c) the kernel path refuses a gradient before any
+    launch, and runs under torch.no_grad(); (d) the toy quadruped from its
+    URDF, float64, B = 4096: kinematics and dynamics on the card against
+    the same calls on the CPU."""
+    out = {}
+    # (a) the closed loop
+    kernels.reset_counts()
+    (v10, val), (g10, grad), fwd_s, bwd_s = _closed_loop_gradient(GRAD_STEPS, DEV)
+    if any(kernels.launch_counts().values()) or any(kernels.plain_counts().values()):
+        raise AssertionError("the single robot's loop ran a kernel or a plain version")
+    (cval,), (cgrad,), cfwd_s, cbwd_s = _closed_loop_gradient(GRAD_CPU_STEPS, "cpu")
+    with torch.no_grad():
+        step = torch.tensor(GRAD_LOG_KP0 - 0.3 * np.sign(grad), dtype=torch.float64,
+                            device=DEV)
+        val_step = _tracking_costs(step, GRAD_STEPS, DEV)[-1].item()
+    rel = abs(g10 - cgrad) / abs(cgrad)
+    out["closed_loop"] = {
+        "steps": GRAD_STEPS, "value": val, "d_dlogkp": grad,
+        "value_after_sign_step": val_step, "forward_s": fwd_s, "backward_s": bwd_s,
+        "cpu_steps": GRAD_CPU_STEPS, "value_at_cpu_steps": v10, "d_dlogkp_at_cpu_steps": g10,
+        "cpu_value": cval, "cpu_d_dlogkp": cgrad, "d_dlogkp_vs_cpu_rel": rel,
+        "cpu_forward_s": cfwd_s, "cpu_backward_s": cbwd_s}
+    if not (np.isfinite(grad) and np.isfinite(g10)) or val_step >= val or rel > GRAD_TOL:
+        raise AssertionError(f"gradients, closed loop: {out['closed_loop']}")
+
+    # (b) one batched control step on the tensor-code backends
+    model = anymal_d_model(torch.float32, DEV)
+    qpp = QPSolverParams()
+    offsets = replay.make_offsets(BATCH, torch.float32, np.random.default_rng(SEED + 3), DEV)
+    obs, ref, new = replay.step_inputs(TRAJ, GRAD_SWITCH_STEP - 1, BATCH, torch.float32,
+                                       offsets, DEV)
+    with torch.no_grad():
+        _, carry = wbc.wbc_step_batched(model, ControllerParams(), qpp, obs, ref,
+                                        wbc.init_carry(BATCH, torch.float32, DEV), new,
+                                        "torch", setup_backend="torch")
+    obs, ref, new = replay.step_inputs(TRAJ, GRAD_SWITCH_STEP, BATCH, torch.float32,
+                                       offsets, DEV)
+    base = ControllerParams()
+    gains = {g: torch.tensor(getattr(base, g), device=DEV, requires_grad=True)
+             for g in ("kp", "kd_swing")}
+    cp = dataclasses.replace(base, **gains)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    step_out, _ = wbc.wbc_step_batched(model, cp, qpp, obs, ref, carry, new, "torch",
+                                       setup_backend="torch")
+    loss = torch.sum(step_out.tau ** 2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g_kp, g_kd = torch.autograd.grad(loss, (gains["kp"], gains["kd_swing"]))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out["control_step"] = {
+        "batch": BATCH, "dtype": "float32", "step": GRAD_SWITCH_STEP,
+        "d_sum_tau2_dkp": g_kp.item(), "d_sum_tau2_dkd_swing": g_kd.item(),
+        "forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": kernels.launch_counts(), "plain_calls": kernels.plain_counts(),
+        "max_kkt": float(step_out.qp_info.kkt_residual.detach().max())}
+    if not (np.isfinite(g_kp.item()) and np.isfinite(g_kd.item())) or any(
+            kernels.launch_counts().values()) or any(kernels.plain_counts().values()):
+        raise AssertionError(f"gradients, control step: {out['control_step']}")
+    del step_out, loss
+
+    # (c) the kernel path refuses a gradient before any launch
+    cache = qp.make_cache(BATCH, N, M, qpp, torch.float32, DEV)
+    kernels.reset_counts()
+    try:
+        wbc.wbc_step_batched(model, cp, qpp, obs, ref, carry, new, qp_cache=cache)
+    except RuntimeError as e:
+        message = str(e)
+    else:
+        raise AssertionError("gradients: the kernel path took an input that requires grad")
+    refused = kernels.launch_counts()
+    with torch.no_grad():
+        kernels.reset_counts()
+        wbc.wbc_step_batched(model, cp, qpp, obs, ref, carry, new, qp_cache=cache)
+        torch.cuda.synchronize()
+    ran = kernels.launch_counts()
+    out["refusal"] = {"message": message, "launches_at_refusal": refused,
+                      "launches_under_no_grad": {k: v for k, v in ran.items() if v}}
+    if any(refused.values()) or not message.startswith("wbc_step_batched(") or not (
+            ran[K3] == 1 and ran[K1] >= 1 and ran[K2] >= 1):
+        raise AssertionError(f"gradients, refusal: {out['refusal']}")
+
+    # (d) the URDF model on the card against the CPU
+    path = os.path.join(ROOT, "tests", "data", "toy_quadruped.urdf")
+    rng = np.random.default_rng(SEED + 4)
+    quat = rng.normal(size=(BATCH, 4))
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    R = spatial.quat_to_matrix(torch.as_tensor(quat)).numpy()
+    state = (R, rng.normal(size=(BATCH, 3)), rng.uniform(-0.8, 0.3, size=(BATCH, 8)),
+             rng.normal(size=(BATCH, 14)))
+
+    def dynamics(device):
+        toy = RobotModel.from_urdf(path, URDF_JOINTS, URDF_FEET, torch.float64, device)
+        base_R, base_p, q, u = (torch.as_tensor(a, device=device) for a in state)
+        kin = kinematics.forward_kinematics(toy, base_R, base_p, q)
+        res = {"frame_p": kin.frame_p, "mass_matrix": D.mass_matrix(toy, kin),
+               "bias": D.coriolis_bias(toy, base_R, base_p, q, u),
+               "frame_jacobians": kinematics.frame_jacobians(toy, kin)}
+        return toy, {k: v.cpu().numpy() for k, v in res.items()}
+
+    toy, card = dynamics(DEV)
+    _, cpu = dynamics("cpu")
+    errs = {k: float(np.abs(card[k] - cpu[k]).max() / max(1.0, np.abs(cpu[k]).max()))
+            for k in cpu}
+    out["urdf_model"] = {"bodies": toy.num_bodies, "joints": toy.num_joints,
+                         "batch": BATCH, "dtype": "float64",
+                         "card_vs_cpu_max_share_of_scale": errs}
+    if max(errs.values()) > 1e-10:
+        raise AssertionError(f"gradients, urdf model: {out['urdf_model']}")
+    return out
 
 
 def main():
@@ -2011,6 +2186,7 @@ def main():
     payload = payload_physics()
     sweep_runs, flagship = sweeps()
     cli_line = cli_sweep()
+    grads = gradients()
     # each kernel's row carries the launches of the run that drives it: the
     # main path's K3, K1, K2; the torch path's K4 (its code runs inside K3 on
     # the main path); the sigma path's K5; the generic path's K7 (sigma 0);
@@ -2041,6 +2217,7 @@ def main():
     emit({"sweep": sweep_runs, **tag})
     emit({"flagship": flagship, **tag})
     emit({"cli_sweep": cli_line, **tag})
+    emit({"gradients": grads, **tag})
     emit({"kernels": list(rows.values()), "problem": stats, **tag})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,7 @@ from quadrupedwholebodycontroller_tpu_torch.ops import dynamics as D
 from quadrupedwholebodycontroller_tpu_torch.ops import kinematics as K
 from quadrupedwholebodycontroller_tpu_torch.ops import qp
 from quadrupedwholebodycontroller_tpu_torch.ops import spatial
+from quadrupedwholebodycontroller_tpu_torch.ops.kernels import build as kernel_build
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import setup as setup_kernel
 from quadrupedwholebodycontroller_tpu_torch.ops.linalg import spd_inv12
 
@@ -122,12 +123,13 @@ def init_carry(batch: int, dtype=torch.float32, device="cuda") -> WBCCarry:
 
 def _friction_pyramid(friction, contacts):
     """D_fr (B, 16, 12): 4 one-sided rows per leg, D = +-(t_i - mu n),
-    contact-masked (the reference's computeNonSlidingConstraints)."""
-    mu = friction
-    Dleg = torch.tensor(
-        [[1.0, 0.0, -mu], [-1.0, 0.0, -mu], [0.0, 1.0, -mu], [0.0, -1.0, -mu]],
-        dtype=contacts.dtype, device=contacts.device,
-    )
+    contact-masked (the reference's computeNonSlidingConstraints).
+    friction: a float or a 0-d tensor (a gradient flows to it)."""
+    kw = dict(dtype=contacts.dtype, device=contacts.device)
+    tangent = torch.tensor([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                            [0.0, -1.0, 0.0]], **kw)
+    normal = torch.tensor([0.0, 0.0, 1.0], **kw)
+    Dleg = tangent - torch.as_tensor(friction, **kw) * normal
     out = torch.zeros((contacts.shape[0], 4 * NUM_LEGS, 3 * NUM_LEGS),
                       dtype=contacts.dtype, device=contacts.device)
     for i in range(NUM_LEGS):
@@ -187,7 +189,9 @@ def wbc_setup(
 ) -> WBCSetup:
     """State update + QP assembly for a batch (the updateState /
     solveQP-assembly halves of the reference control cycle).  ref_is_new:
-    (B,) bool.
+    (B,) bool.  Every float gain of `params` (kp, kp_z, kd, ki, kp_swing,
+    kd_swing, max_torque, slack_weight, friction) may be a float or a 0-d
+    tensor; a gradient flows to a tensor gain.
 
     Tdot and Jdot are the reference's one-cycle finite differences, or with
     `params.exact_derivatives` their analytic values along the state flow
@@ -252,8 +256,8 @@ def wbc_setup(
         new_tdot_inv = C.tdot_inverse(tf, T_dot)
 
     # ---- desired wrench (computeDesiredWrench) ----
-    kp_diag = torch.full((6,), params.kp, **kw)
-    kp_diag[2] = params.kp_z
+    kp, kp_z = torch.as_tensor(params.kp, **kw), torch.as_tensor(params.kp_z, **kw)
+    kp_diag = torch.stack([kp, kp, kp_z, kp, kp, kp])
     gravity_wrench = torch.zeros((B, 6), **kw)
     gravity_wrench[:, 2] = model.total_mass * GRAVITY
     pose_err = current_pose - ref.com_pose
@@ -279,8 +283,8 @@ def wbc_setup(
     # ---- QP assembly (solveQP) ----
     n, m = QP_NUM_VARS, QP_NUM_CONSTRAINTS
     # H = S_F^T J_st,com Q J_st,com^T S_F + R   (Q = I6)
-    R_diag = torch.ones(n, **kw)
-    R_diag[30:42] = params.slack_weight
+    R_diag = torch.cat([torch.ones(30, **kw),
+                        torch.as_tensor(params.slack_weight, **kw).expand(n - 30)])
     H = torch.diag_embed(R_diag.expand(B, n)).contiguous()
     H[:, 18:30, 18:30] += Jc_st_com @ Jc_st_com.transpose(-1, -2)
     g = torch.zeros((B, n), **kw)
@@ -305,7 +309,7 @@ def wbc_setup(
     vel_c = torch.cat([com_vel6, obs.qd], dim=-1)  # centroidal-coordinates velocity
     stance_rhs = -_mv(Jd_st, vel_c)
     swing_rhs = a_cmd - _mv(Jd_sw, vel_c)
-    tau_max = torch.full((B, nj), params.max_torque, **kw)
+    tau_max = torch.as_tensor(params.max_torque, **kw).expand(B, nj)
     inf12 = torch.full((B, 3 * nl), QP_INF, **kw)
     ub = torch.cat(
         [-gravity_wrench, stance_rhs, torch.zeros((B, 4 * nl), **kw),
@@ -443,7 +447,6 @@ def _switch_masked_warm(carry: WBCCarry, switch):
     )
 
 
-@torch.no_grad()
 def wbc_step_batched(
     model: RobotModel,
     params: ControllerParams,
@@ -460,9 +463,16 @@ def wbc_step_batched(
     """One batched 400 Hz control cycle; returns (out, carry, cache), or
     (out, carry) without a `qp_cache`.
 
-    Runs under `torch.no_grad()`: this is the serving path and no gradient
-    flows through it.  The tensors decide the device: CUDA tensors go
-    through the CUDA kernels, CPU tensors through their plain versions.
+    The tensors decide the device: CUDA tensors go through the CUDA
+    kernels, CPU tensors through their plain versions.
+
+    Gradients: with qp_backend="torch" and setup_backend="torch" the step
+    is tensor code and runs in the caller's grad mode (a gain of `params`
+    may be a 0-d tensor that requires grad).  Where either backend is a
+    kernel's, an input that requires grad (the model, a tensor gain, obs,
+    ref, carry, the cache) raises before anything launches, with grad mode
+    on: the kernels have no backward, as the JAX package's Pallas path has
+    none; otherwise the step runs under `torch.no_grad()`.
 
     qp_cache: the carried factorization cache (qp.make_cache).  cache_valid
     is the scalar warm gate, False on the first cycle; contact switches
@@ -492,60 +502,66 @@ def wbc_step_batched(
         setup_backend = qp_backend
     if setup_backend not in ("kernel", "torch"):
         raise ValueError(f"setup_backend={setup_backend!r}")
-    B = obs.q.shape[0]
-    dev = obs.q.device
-    ref_is_new_b = torch.as_tensor(ref_is_new, dtype=torch.bool, device=dev).expand(B)
-    prepared = None
-    if setup_backend == "kernel":
-        epilogue = params.exact_derivatives and params.exact_epilogue
-        sk = setup_kernel.setup_batched(
-            model, params, obs, ref, carry, ref_is_new_b,
-            qp_params=qp_params if qp_backend == "kernel" else None,
-            exact_mode=params.exact_derivatives and not epilogue)
-        setup = WBCSetup(
-            qp_data=qp.QPData(H=sk["H"], g=sk["g"], A=sk["A"], l=sk["l"], u=sk["u"]),
-            h_c=sk["h_c"], Mc_jj=sk["Mc_jj"], Jc_st_j=sk["Jc_st_j"], com=sk["com"],
-            current_pose=sk["current_pose"], foot_pos=sk["foot_pos"],
-            carry_updates=sk["carry_updates"],
+    kernel = "kernel" in (qp_backend, setup_backend)
+    if kernel:
+        kernel_build.refuse_grad(
+            f"wbc_step_batched(qp_backend={qp_backend!r}, setup_backend={setup_backend!r})",
+            model, params, obs, ref, carry, ref_is_new, qp_cache,
+            hint='qp_backend="torch" with setup_backend="torch" carries a gradient')
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not kernel):
+        B = obs.q.shape[0]
+        dev = obs.q.device
+        ref_is_new_b = torch.as_tensor(ref_is_new, dtype=torch.bool, device=dev).expand(B)
+        prepared = None
+        if setup_backend == "kernel":
+            epilogue = params.exact_derivatives and params.exact_epilogue
+            sk = setup_kernel.setup_batched(
+                model, params, obs, ref, carry, ref_is_new_b,
+                qp_params=qp_params if qp_backend == "kernel" else None,
+                exact_mode=params.exact_derivatives and not epilogue)
+            setup = WBCSetup(
+                qp_data=qp.QPData(H=sk["H"], g=sk["g"], A=sk["A"], l=sk["l"], u=sk["u"]),
+                h_c=sk["h_c"], Mc_jj=sk["Mc_jj"], Jc_st_j=sk["Jc_st_j"], com=sk["com"],
+                current_pose=sk["current_pose"], foot_pos=sk["foot_pos"],
+                carry_updates=sk["carry_updates"],
+            )
+            prepared = sk["prepared"]   # its warm start is already switch-masked
+            if epilogue:
+                setup, prepared = _exact_epilogue_batched(model, params, obs, carry,
+                                                          setup, prepared)
+        else:
+            setup = wbc_setup(model, params, obs, ref, carry, ref_is_new_b)
+        switch = setup.carry_updates["switch_flag"]
+        warm = _switch_masked_warm(carry, switch)
+        # the closed-form polish H^-1 serves the kernel path; the torch backend
+        # derives its own
+        hinv_fn = _wbc_polish_hinv if qp_backend == "kernel" else None
+        if qp_cache is None:
+            qp_state, qp_info = qp.solve_batched(
+                setup.qp_data, warm, qp_params, qp_backend, hinv_fn=hinv_fn,
+                prepared=prepared)
+            return _finish_step(setup, qp_state, qp_info)
+        # cache invalidation keys on the switch EDGE (contacts changed at THIS
+        # publish tick), not the held switch_flag: the flag stays up until the
+        # next planner message (kept for the FD-derivative zeroing), but the
+        # cached inverses match the new contact set after ONE cold re-inverse
+        switch_edge = ref_is_new_b & (ref.contacts != carry.prev_contacts).any(-1)
+        valid_b = torch.as_tensor(cache_valid, dtype=torch.bool, device=dev).expand(B)
+        if qp_params.cold_batch > 0:
+            # per-scenario warm gate: a contact switch cold-restarts only that
+            # scenario's cached inverses
+            use_warm = valid_b & ~switch_edge
+        else:
+            use_warm = (valid_b & ~switch_edge).all()
+        qp_state, qp_info, new_cache = qp.solve_batched(
+            setup.qp_data, warm, qp_params, qp_backend,
+            cache=qp_cache, use_warm=use_warm, hinv_fn=hinv_fn,
+            prepared=prepared,
         )
-        prepared = sk["prepared"]   # its warm start is already switch-masked
-        if epilogue:
-            setup, prepared = _exact_epilogue_batched(model, params, obs, carry,
-                                                      setup, prepared)
-    else:
-        setup = wbc_setup(model, params, obs, ref, carry, ref_is_new_b)
-    switch = setup.carry_updates["switch_flag"]
-    warm = _switch_masked_warm(carry, switch)
-    # the closed-form polish H^-1 serves the kernel path; the torch backend
-    # derives its own
-    hinv_fn = _wbc_polish_hinv if qp_backend == "kernel" else None
-    if qp_cache is None:
-        qp_state, qp_info = qp.solve_batched(
-            setup.qp_data, warm, qp_params, qp_backend, hinv_fn=hinv_fn,
-            prepared=prepared)
-        return _finish_step(setup, qp_state, qp_info)
-    # cache invalidation keys on the switch EDGE (contacts changed at THIS
-    # publish tick), not the held switch_flag: the flag stays up until the
-    # next planner message (kept for the FD-derivative zeroing), but the
-    # cached inverses match the new contact set after ONE cold re-inverse
-    switch_edge = ref_is_new_b & (ref.contacts != carry.prev_contacts).any(-1)
-    valid_b = torch.as_tensor(cache_valid, dtype=torch.bool, device=dev).expand(B)
-    if qp_params.cold_batch > 0:
-        # per-scenario warm gate: a contact switch cold-restarts only that
-        # scenario's cached inverses
-        use_warm = valid_b & ~switch_edge
-    else:
-        use_warm = (valid_b & ~switch_edge).all()
-    qp_state, qp_info, new_cache = qp.solve_batched(
-        setup.qp_data, warm, qp_params, qp_backend,
-        cache=qp_cache, use_warm=use_warm, hinv_fn=hinv_fn,
-        prepared=prepared,
-    )
-    out, new_carry = _finish_step(setup, qp_state, qp_info)
-    return out, new_carry, new_cache
+        out, new_carry = _finish_step(setup, qp_state, qp_info)
+        return out, new_carry, new_cache
 
 
-@torch.no_grad()
 def wbc_step(
     model: RobotModel,
     params: ControllerParams,
@@ -559,7 +575,10 @@ def wbc_step(
     package's single-sample `wbc_step` (its result equals that function
     under `vmap`; B = 1 is the single robot): `wbc_setup` -> the
     switch-masked warm start -> `ops.qp.solve` (tensor code, its
-    single-sample rescue) -> the torque map.  Returns (out, carry).
+    single-sample rescue) -> the torque map.  Returns (out, carry).  Runs
+    in the caller's grad mode: a gain of `params` may be a 0-d tensor that
+    requires grad, and the gradient flows as `jax.grad` flows through the
+    JAX function (not through the rescue).
 
     ref_is_new mirrors the arrival of a planner message (the contact-switch
     flag is only re-evaluated then): a bool or a (B,) bool tensor."""

@@ -124,3 +124,14 @@ class RobotModel:
                   device="cuda") -> "RobotModel":
         with open(path) as f:
             return cls.from_spec(json.load(f), dtype=dtype, device=device)
+
+    @classmethod
+    def from_urdf(cls, path: str, joint_order, frame_names, dtype=torch.float32,
+                  device="cuda") -> "RobotModel":
+        """The lumped model of a URDF file (`models.urdf.parse_urdf`):
+        joint_order the movable joints in generalized-coordinate order,
+        frame_names the links exported as named frames (e.g. the feet)."""
+        from quadrupedwholebodycontroller_tpu_torch.models.urdf import parse_urdf
+
+        return cls.from_spec(parse_urdf(path, joint_order, frame_names), dtype=dtype,
+                             device=device)

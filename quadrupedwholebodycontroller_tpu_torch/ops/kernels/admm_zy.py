@@ -151,7 +151,10 @@ def admm_zy_iterations_res(Kinv, A, g, l, u, rho, x0, z0, y0,
     that, and in float64, the same stages read them from shared memory
     ("shared_memory").  Both sum in the same order.  A shape neither takes
     (more than 1024 threads, i.e. m + 2n > 1024, or more shared memory than
-    a block has) raises ValueError."""
+    a block has) raises ValueError.  Refuses an input that requires grad
+    (`build.refuse_grad`)."""
+    build.refuse_grad("admm_zy_iterations_res", Kinv, A, g, l, u, rho, x0, z0, y0,
+                      Hs, l_orig, u_orig, d, e)
     if A.device.type == "cpu":
         return admm_zy_iterations_res_plain(
             Kinv, A, g, l, u, rho, x0, z0, y0, Hs, l_orig, u_orig, d, e,

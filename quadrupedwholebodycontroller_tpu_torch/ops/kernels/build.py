@@ -10,6 +10,7 @@ output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import re
@@ -281,6 +282,37 @@ def launch(name: str, dtype_suffix: str, *args) -> None:
             f"CUDA launch of {name}_{dtype_suffix} failed: "
             f"{l.qwbc_error_string(err).decode()} (code {err})"
         )
+
+
+def _requires_grad(x) -> bool:
+    """Whether a tensor in x (a tensor, a tuple, list or dict of them, or a
+    dataclass such as a RobotModel or ControllerParams) requires grad."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.requires_grad
+    if isinstance(x, (tuple, list)):
+        return any(_requires_grad(t) for t in x)
+    if isinstance(x, dict):
+        return any(_requires_grad(t) for t in x.values())
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return any(_requires_grad(getattr(x, f.name)) for f in dataclasses.fields(x))
+    return False
+
+
+def refuse_grad(name: str, *inputs, hint: str = "") -> None:
+    """Raise before anything launches when grad mode is on and an input
+    requires grad, on either device (the CPU's plain version too), so that
+    the kernel path's contract is the same here and on the card.  `hint`,
+    an entry point's, says which of its options carries a gradient."""
+    import torch
+
+    if torch.is_grad_enabled() and _requires_grad(inputs):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernels have no backward, as "
+            "the JAX package's Pallas kernels have none (jax.grad through a "
+            "pl.pallas_call raises).  " + (f"{hint}.  " if hint else "")
+            + "For a value alone, call under torch.no_grad().")
 
 
 def check_inputs(ref, named_shapes: dict, device_type: str = "cuda") -> str:

@@ -78,7 +78,9 @@ def _check(A, warm, device_type):
 def ns_inverse_warm(A, warm, warm_iters: int = 2):
     """A, warm (B, n, n), A symmetric positive definite (the product A W is
     taken as written; the Pallas kernel contracts A's leading axis, the same
-    for symmetric A).  Returns X (B, n, n)."""
+    for symmetric A).  Returns X (B, n, n).  Refuses an input that requires
+    grad (`build.refuse_grad`)."""
+    build.refuse_grad("ns_inverse_warm", A, warm)
     if A.device.type == "cpu":
         return ns_inverse_warm_plain(A, warm, warm_iters)
     suffix = _check(A, warm, "cuda")

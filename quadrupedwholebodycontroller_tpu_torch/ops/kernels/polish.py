@@ -130,7 +130,9 @@ def polish_solve(H, Hinv, Sinv, A, da, g, b, l, u, *, refine: int, reg: float):
     (B, n, n) or both compact (diag, blk, start) tuples; Sinv (B, m, m) the
     (approximate) inverse of the polish Schur complement; da (B, m) the 0/1
     active-row mask; b the active bounds.  Any B >= 1.  Returns
-    (x, y, z, pr, du, sv)."""
+    (x, y, z, pr, du, sv).  Refuses an input that requires grad
+    (`build.refuse_grad`)."""
+    build.refuse_grad("polish_solve", H, Hinv, Sinv, A, da, g, b, l, u)
     form = _form(H, Hinv)
     if A.device.type == "cpu":
         return polish_solve_plain(H, Hinv, Sinv, A, da, g, b, l, u,

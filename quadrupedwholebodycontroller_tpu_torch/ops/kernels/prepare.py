@@ -48,7 +48,9 @@ def prepare_scaled_plain(H, A, g, l, u, wx, wz, wy, *, sweeps: int,
 def prepare_scaled(H, A, g, l, u, wx, wz, wy, *, sweeps: int, rho0: float,
                    rho_eq_scale: float):
     """Batch-major (B, ...) in and out.  Returns
-    (sH, sA, sg, sl, su, rho, wxs, wzs, wys, d, e)."""
+    (sH, sA, sg, sl, su, rho, wxs, wzs, wys, d, e).  Refuses an input that
+    requires grad (`build.refuse_grad`)."""
+    build.refuse_grad("prepare_scaled", H, A, g, l, u, wx, wz, wy)
     if H.device.type == "cpu":
         return prepare_scaled_plain(
             H, A, g, l, u, wx, wz, wy,

@@ -102,16 +102,25 @@ def _shapes(B: int, fused: bool):
     return ins, warm, outs
 
 _constants = {}   # (id(model), params, dtype, device) -> (model, mc, topo)
+GAINS = ("friction", "kp", "kp_z", "kd", "ki", "kp_swing", "kd_swing", "max_torque",
+         "slack_weight")   # the gains of ControllerParams the kernel reads
 
 
-def pack_constants(model, params):
-    """(reals float64, ints int32): the model and the controller gains in
-    the layout `csrc/setup.cu` reads (MC_* and TP_* there)."""
+def _check_model(model):
     nb, nj, nl = model.num_bodies, model.num_joints, len(model.frame_body)
     if (nb, nj, nl) != (NUM_BODIES, NUM_JOINTS, NUM_LEGS):
         raise ValueError(
             f"the setup kernel is compiled for {NUM_BODIES} bodies, {NUM_JOINTS} "
             f"joints and {NUM_LEGS} feet, got {nb}, {nj}, {nl}")
+
+
+def pack_constants(model, params):
+    """(reals float64, ints int32): the model and the controller gains in
+    the layout `csrc/setup.cu` reads (MC_* and TP_* there).  A gain may be
+    a float or a 0-d tensor that does not require grad."""
+    build.refuse_grad("pack_constants", model, params)
+    _check_model(model)
+    nb, nj = model.num_bodies, model.num_joints
     f64 = lambda t: t.detach().double().cpu().numpy()
     jR, jp, jax_ = f64(model.joint_R), f64(model.joint_p), f64(model.joint_axis)
     mass, com, inertia = f64(model.mass), f64(model.com), f64(model.inertia)
@@ -127,12 +136,13 @@ def pack_constants(model, params):
     bodies = [np.concatenate([[mass[b], mass[b] / m_tot], com[b], inertia[b].ravel()])
               for b in range(nb)]
     inv_m = 1.0 / m_tot
+    p = {k: float(getattr(params, k)) for k in GAINS}
     scalars = [
         m_tot, inv_m, inv_m * inv_m, m_tot * GRAVITY, 1.0 / params.loop_rate,
-        1.0 / (1.0 / params.loop_rate), params.friction,
-        params.kp, params.kp, params.kp_z, params.kp, params.kp, params.kp,
-        params.kd, params.ki, params.kp_swing, params.kd_swing,
-        params.max_torque, params.slack_weight, QP_INF,
+        1.0 / (1.0 / params.loop_rate), p["friction"],
+        p["kp"], p["kp"], p["kp_z"], p["kp"], p["kp"], p["kp"],
+        p["kd"], p["ki"], p["kp_swing"], p["kd_swing"],
+        p["max_torque"], p["slack_weight"], QP_INF,
     ]
     mc = np.concatenate([*joints, *bodies, foot_p.ravel(), scalars])
 
@@ -148,6 +158,9 @@ def pack_constants(model, params):
 
 
 def _device_constants(model, params, dtype, device):
+    # keyed on the gains' values: a tensor gain hashes by its id, which an
+    # update in place keeps and a fresh tensor of the same value does not
+    params = dataclasses.replace(params, **{k: float(getattr(params, k)) for k in GAINS})
     key = (id(model), params, dtype, str(device))
     if key not in _constants:
         mc, topo = pack_constants(model, params)
@@ -278,7 +291,12 @@ def setup_batched(model, params, obs, ref, carry, ref_is_new, qp_params=None,
     ref_is_new: a bool or a (B,) bool tensor of any stride.
 
     stop_after: a section probe (`SECTIONS`; float32, CUDA tensors; on the
-    CPU `setup_batched_host` runs them): only `com` is written."""
+    CPU `setup_batched_host` runs them): only `com` is written.
+
+    Refuses an input that requires grad, the model's tensors and a gain
+    given as a tensor included (`build.refuse_grad`)."""
+    build.refuse_grad("setup_batched", model, params, obs, ref, carry, ref_is_new)
+    _check_model(model)   # on either device, as the kernel is compiled
     if obs.base_p.device.type == "cpu":
         if stop_after is not None:
             raise ValueError("stop_after probes the kernel: CUDA tensors only "

@@ -32,8 +32,15 @@ Every leaf carries the scenario batch as its leading dimension.
 Control flow: where the JAX package branches on device values with
 `lax.cond` / `while_loop`, this module branches on the host
 (`if _host(...)`), one device-to-host sync each.  `HOST_SYNCS` counts
-them.  Nothing here needs a gradient: the entry point runs under
-`torch.no_grad()`.
+them.
+
+Gradients: the "torch" backend (`solve`, `solve_batched(backend="torch")`)
+runs in the caller's grad mode, as `jax.grad` runs through the JAX
+package's "xla" backend.  Its rescues run under `torch.no_grad()` on
+detached inputs (`_sg`) and are merged value only (`_ad_passthrough`): the
+gradient flows through the pre-rescue iterate, as in the JAX package.  The
+kernel backend refuses an input that requires grad, as `jax.grad` through
+a `pl.pallas_call` raises, and otherwise runs under `torch.no_grad()`.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from quadrupedwholebodycontroller_tpu_torch.ops import compensated as comp
 from quadrupedwholebodycontroller_tpu_torch.ops.kernels import (
     admm,
     admm_zy,
+    build,
     polish,
     prepare,
 )
@@ -57,6 +65,31 @@ from quadrupedwholebodycontroller_tpu_torch.ops.linalg import (
 )
 
 HOST_SYNCS = 0   # device-to-host reads made to decide a branch
+
+
+def _sg(tree):
+    """Detach the tensor leaves of a (nested) tuple or NamedTuple; other
+    leaves (a compact block's `start` index, None) pass through."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, tuple):
+        leaves = [_sg(t) for t in tree]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
+    return tree
+
+
+def _ad_passthrough(before, after):
+    """Value `after`, gradient the identity on `before`, leaf by leaf: a
+    float leaf becomes a + (b - a).detach(); a bool or int leaf (`polished`)
+    is `b`.  The rescues run under `torch.no_grad()` and are merged so, and
+    the gradient flows through the pre-rescue iterate (the JAX package's
+    `_ad_passthrough`)."""
+    if isinstance(before, torch.Tensor):
+        if not before.is_floating_point():
+            return after
+        return before + (after - before).detach()
+    leaves = [_ad_passthrough(a, b) for a, b in zip(before, after)]
+    return type(before)(*leaves) if hasattr(before, "_fields") else tuple(leaves)
 
 
 def _host(t):
@@ -424,12 +457,12 @@ def _rescue_solver_params(params: QPSolverParams) -> QPSolverParams:
                                rescue_threshold=0.0)
 
 
-@torch.no_grad()
 def solve(data: QPData, warm: QPState, params: QPSolverParams = QPSolverParams()):
     """Solve a batch of QPs, each as the JAX package's single-sample `solve`
     does (its result equals that function under `vmap`, scenario by
     scenario; B = 1 is the single robot).  Returns (state, info).  Tensor
-    code only, under `torch.no_grad()`.
+    code only, in the caller's grad mode: the gradient flows through the
+    ADMM and polish rounds, not through the rescue (merged value only).
 
     Scaled problem -> a cold K^-1 of K = sH + sigma I + A^T diag(rho) A ->
     `params.iterations` x-space ADMM iterations from the scaled warm start
@@ -518,23 +551,30 @@ def solve(data: QPData, warm: QPState, params: QPSolverParams = QPSolverParams()
         polished = polished | ok
 
     if params.rescue_threshold > 0:
-        rparams = _rescue_solver_params(params)
-        improved = torch.ones_like(polished)
-        for _ in range(params.rescue_stages):
-            idx = _host_nonzero((res_b > params.rescue_threshold) & improved)
-            if idx.numel() == 0:
-                break
-            res_i = _take(res_b, idx)
-            st, ri = solve(QPData(*(_take(leaf, idx) for leaf in data)),
-                           _take_state(best, idx), rparams)
-            ok = ri.kkt_residual <= res_i
-            kept = _where_state(ok, st, _take_state(best, idx))
-            best = QPState(*(_put(a, idx, k) for a, k in zip(best, kept)))
-            pr_b = _put(pr_b, idx, torch.where(ok, ri.primal_residual, _take(pr_b, idx)))
-            du_b = _put(du_b, idx, torch.where(ok, ri.dual_residual, _take(du_b, idx)))
-            res_b = _put(res_b, idx, torch.where(ok, ri.kkt_residual, res_i))
-            polished = _put(polished, idx, _take(polished, idx) | (ok & ri.polished))
-            improved = _put(improved, idx, ok & (ri.kkt_residual < res_i))
+        # the rescue runs under torch.no_grad() on detached inputs and is
+        # merged value only: the gradient flows through the pre-rescue
+        # iterate, as in the JAX package
+        before = (best, QPInfo(pr_b, du_b, res_b, polished))
+        data, (best, (pr_b, du_b, res_b, polished)) = _sg(data), _sg(before)
+        with torch.no_grad():
+            rparams = _rescue_solver_params(params)
+            improved = torch.ones_like(polished)
+            for _ in range(params.rescue_stages):
+                idx = _host_nonzero((res_b > params.rescue_threshold) & improved)
+                if idx.numel() == 0:
+                    break
+                res_i = _take(res_b, idx)
+                st, ri = solve(QPData(*(_take(leaf, idx) for leaf in data)),
+                               _take_state(best, idx), rparams)
+                ok = ri.kkt_residual <= res_i
+                kept = _where_state(ok, st, _take_state(best, idx))
+                best = QPState(*(_put(a, idx, k) for a, k in zip(best, kept)))
+                pr_b = _put(pr_b, idx, torch.where(ok, ri.primal_residual, _take(pr_b, idx)))
+                du_b = _put(du_b, idx, torch.where(ok, ri.dual_residual, _take(du_b, idx)))
+                res_b = _put(res_b, idx, torch.where(ok, ri.kkt_residual, res_i))
+                polished = _put(polished, idx, _take(polished, idx) | (ok & ri.polished))
+                improved = _put(improved, idx, ok & (ri.kkt_residual < res_i))
+        return _ad_passthrough(before, (best, QPInfo(pr_b, du_b, res_b, polished)))
     return best, QPInfo(pr_b, du_b, res_b, polished)
 
 
@@ -547,26 +587,29 @@ def _rescue_batched(data: QPData, best: QPState, info: QPInfo, params: QPSolverP
     (`solve_batched(backend="torch")`), add a compensated-refinement polish
     candidate (`_polish_comp`, with `hinv_fn`'s H^-1 when given, else its
     own Newton-Schulz inverse), and accept each candidate per scenario on
-    the sign-augmented residual."""
-    rparams = _rescue_solver_params(params)
-    pr_b, du_b, res_b, pol = info
-    stage, improved = 0, True
-    while (stage < params.rescue_stages and improved
-           and _host((res_b > params.rescue_threshold).any())):
-        st, ri = solve_batched(data, best, rparams, "torch", hinv_fn=hinv_fn)
-        merged, pr_m, du_m, res_m, pol = _accept_better(
-            best, pr_b, du_b, res_b, pol, st, ri.primal_residual, ri.dual_residual,
-            ri.kkt_residual, data, cand_polished=ri.polished)
-        if params.rescue_comp_refine > 0 and params.polish:
-            Hinv = hinv_fn(data.H, params.polish_reg) if hinv_fn is not None else None
-            cand, pr_c, du_c = _polish_comp(data, merged, params, Hinv)
+    the sign-augmented residual.  Runs under `torch.no_grad()` on detached
+    inputs; its result is merged value only (`_ad_passthrough`)."""
+    before = (best, info)
+    data, (best, (pr_b, du_b, res_b, pol)) = _sg(data), _sg(before)
+    with torch.no_grad():
+        rparams = _rescue_solver_params(params)
+        stage, improved = 0, True
+        while (stage < params.rescue_stages and improved
+               and _host((res_b > params.rescue_threshold).any())):
+            st, ri = solve_batched(data, best, rparams, "torch", hinv_fn=hinv_fn)
             merged, pr_m, du_m, res_m, pol = _accept_better(
-                merged, pr_m, du_m, res_m, pol, cand, pr_c, du_c,
-                _finite_or_inf(pr_c, du_c), data)
-        improved = bool(_host((res_m < res_b).any()))
-        best, pr_b, du_b, res_b = merged, pr_m, du_m, res_m
-        stage += 1
-    return best, QPInfo(pr_b, du_b, res_b, pol)
+                best, pr_b, du_b, res_b, pol, st, ri.primal_residual, ri.dual_residual,
+                ri.kkt_residual, data, cand_polished=ri.polished)
+            if params.rescue_comp_refine > 0 and params.polish:
+                Hinv = hinv_fn(data.H, params.polish_reg) if hinv_fn is not None else None
+                cand, pr_c, du_c = _polish_comp(data, merged, params, Hinv)
+                merged, pr_m, du_m, res_m, pol = _accept_better(
+                    merged, pr_m, du_m, res_m, pol, cand, pr_c, du_c,
+                    _finite_or_inf(pr_c, du_c), data)
+            improved = bool(_host((res_m < res_b).any()))
+            best, pr_b, du_b, res_b = merged, pr_m, du_m, res_m
+            stage += 1
+    return _ad_passthrough(before, (best, QPInfo(pr_b, du_b, res_b, pol)))
 
 
 def _polish_batched_kernel(data: QPData, params: QPSolverParams, H_reg, Hinv,
@@ -629,7 +672,6 @@ def _admm_res(params: QPSolverParams, *args, iters: int):
                                     alpha=params.alpha)
 
 
-@torch.no_grad()
 def solve_batched(
     data: QPData,
     warm: QPState,
@@ -641,15 +683,19 @@ def solve_batched(
     prepared=None,
 ):
     """Batched solve; returns (state, info, new_cache) with a cache, else
-    (state, info).  Runs under `torch.no_grad()`: this is the serving path,
-    no gradient flows.
+    (state, info).
 
     backend: "kernel" (the solver kernels, below) or "torch": `solve` with
     its rescue off, then the batch-level rescue `_rescue_batched`, the JAX
     package's "xla" backend.  The torch backend keeps no factorizations
     (a given cache comes back as it went in), ignores `use_warm` and
     `prepared`, and reads `hinv_fn` only for the rescue's compensated
-    candidates.
+    candidates.  It runs in the caller's grad mode (the gradient of the
+    JAX package's "xla" backend).  The kernel backend has no backward, as
+    the JAX package's Pallas backend has none: with grad mode on, an input
+    that requires grad raises before anything launches
+    (`kernels.build.refuse_grad`); otherwise it runs under
+    `torch.no_grad()`.
 
     cache / use_warm: carried QPCache of last cycle's inverses and the warm
     gate, a scalar or a (B,) bool mask.  With a mask (and
@@ -673,243 +719,248 @@ def solve_batched(
         if params.rescue_threshold > 0:
             st, info = _rescue_batched(data, st, info, params, hinv_fn)
         return (st, info) if cache is None else (st, info, cache)
-    B, m, n = data.A.shape
-    dtype, dev = data.H.dtype, data.H.device
-    eye_n = torch.eye(n, dtype=dtype, device=dev)
+    build.refuse_grad('solve_batched(backend="kernel")', data, warm, cache, use_warm,
+                      prepared, hint='backend="torch" carries a gradient')
+    with torch.no_grad():
+        B, m, n = data.A.shape
+        dtype, dev = data.H.dtype, data.H.device
+        eye_n = torch.eye(n, dtype=dtype, device=dev)
 
-    if prepared is None:
-        prepared = prepare.prepare_scaled(
-            data.H, data.A, data.g, data.l, data.u, warm.x, warm.z, warm.y,
-            sweeps=params.scaling_iters, rho0=params.rho,
-            rho_eq_scale=params.rho_eq_scale,
-        )
-    sH, sA, sg, sl, su, rho, wxs, wzs, wys, dscale, escale = prepared
-    K = sH + params.sigma * eye_n if params.sigma else sH
-    K = K + (sA.transpose(-1, -2) * rho[:, None, :]) @ sA
-    wi_polish = (params.ns_warm_iters_polish if params.ns_warm_iters_polish >= 0
-                 else params.ns_warm_iters)
+        if prepared is None:
+            prepared = prepare.prepare_scaled(
+                data.H, data.A, data.g, data.l, data.u, warm.x, warm.z, warm.y,
+                sweeps=params.scaling_iters, rho0=params.rho,
+                rho_eq_scale=params.rho_eq_scale,
+            )
+        sH, sA, sg, sl, su, rho, wxs, wzs, wys, dscale, escale = prepared
+        K = sH + params.sigma * eye_n if params.sigma else sH
+        K = K + (sA.transpose(-1, -2) * rho[:, None, :]) @ sA
+        wi_polish = (params.ns_warm_iters_polish if params.ns_warm_iters_polish >= 0
+                     else params.ns_warm_iters)
 
-    # ---- warm-cache gate ----
-    # per-scenario: a (B,) mask with 0 < cold_batch < B; else batch-level;
-    # no cache: every inverse is cold
-    kcold = params.cold_batch
-    warm_mask = cold_idx = None
-    n_cold = 0
-    warm_all = False
-    if cache is not None and use_warm is not None:
-        use_warm = torch.as_tensor(use_warm, device=dev)
-        if use_warm.ndim >= 1 and 0 < kcold < use_warm.shape[0]:
-            warm_mask = use_warm
-            n_cold = int(_host((~warm_mask).sum()))
-            if 0 < n_cold <= kcold:
-                cold_idx = torch.topk((~warm_mask).to(torch.float32), kcold).indices
-        else:
-            warm_all = bool(_host(use_warm.all()))
-
-    def cold_fix(X, M_cold):
-        """Overwrite the cold scenarios' rows of X with fresh cold NS
-        inverses of the gathered top-k sub-batch.  topk returns exactly
-        kcold indices: when fewer scenarios are cold the extras are warm
-        ones, whose rows are kept (so which extras are picked is
-        immaterial)."""
-        Xc = ns_inverse(M_cold, params.ns_iters, body_prec=params.ns_cold_prec or None,
-                        tail=params.ns_cold_tail)
-        sel = _take(warm_mask, cold_idx)
-        Xc = torch.where(sel[:, None, None], _take(X, cold_idx), Xc)
-        return _put(X, cold_idx, Xc)
-
-    def make_inv(warm_arr, wi):
-        """The inverse of M gated on the warm mask or the scalar gate:
-        warm scenarios restart from `warm_arr` (wi >= 1 Newton-Schulz
-        iterations, or its safeguarded pass-through at wi = 0), cold ones
-        get a cold inverse."""
-        def warm_update(M):
-            if wi >= 1:
-                return ns_inverse_warm_shared(M, warm_arr, wi)
-            return ns_inverse(M, params.ns_iters, warm=warm_arr, warm_iters=0)
-
-        def inv(M):
-            if warm_mask is not None and n_cold <= kcold:
-                X = warm_update(M)
-                return cold_fix(X, _take(M, cold_idx)) if n_cold > 0 else X
-            if warm_mask is None and warm_all:
-                return warm_update(M)
-            return ns_inverse(M, params.ns_iters)
-
-        return inv
-
-    Kinv = make_inv(None if cache is None else cache.kinv, params.ns_warm_iters)(K)
-
-    def run_admm(x0, z0, y0, iters):
-        return _admm_res(params, Kinv, sA, sg, sl, su, rho, x0, z0, y0, sH,
-                         data.l, data.u, dscale, escale, iters=iters)
-
-    x, z, y, pr_b, du_b, sv_b = run_admm(wxs, wzs, wys, params.iterations)
-    # cold start (any scenario with an all-zero warm state): spend the init
-    # budget batch-wide, the qpOASES init/hotstart asymmetry
-    extra = max(0, params.cold_iterations - params.iterations)
-    if extra:
-        per_cold = ~((warm.x != 0).any(-1) | (warm.z != 0).any(-1) | (warm.y != 0).any(-1))
-        if _host(per_cold.any()):
-            x, z, y, pr_b, du_b, sv_b = run_admm(x, z, y, extra)
-    best = QPState(x=dscale * x, z=z / escale, y=escale * y)
-
-    # ---- polish inputs: the regularized H and its inverse, compact from
-    # the caller's closed form or dense ----
-    H_polish = Hinv_polish = None
-    if params.polish and hinv_fn is not None:
-        Hinv_polish = hinv_fn(data.H, params.polish_reg)
-        _, hblk, hstart = Hinv_polish
-        k_ = hblk.shape[-1]
-        diag_reg = torch.diagonal(data.H, dim1=-2, dim2=-1) + params.polish_reg
-        diag_reg = torch.cat(
-            [diag_reg[:, :hstart], torch.zeros_like(diag_reg[:, :k_]),
-             diag_reg[:, hstart + k_:]], dim=1)
-        blk_reg = data.H[:, hstart:hstart + k_, hstart:hstart + k_] \
-            + params.polish_reg * torch.eye(k_, dtype=dtype, device=dev)
-        H_polish = (diag_reg, blk_reg, hstart)
-    elif params.polish:
-        H_polish = data.H + params.polish_reg * eye_n
-        Hinv_polish = make_inv(None if cache is None else cache.hinv, wi_polish)(H_polish)
-
-    def sinv_cold(S_thunk):
-        return ns_inverse(S_thunk(), params.ns_iters)
-
-    def sinv_round1(S_thunk):
-        """With wi_polish = 0, round 1 takes the carried Schur inverse as it
-        is on warm scenarios (a stale-but-finite cache is caught by the
-        polish acceptance residuals) and never assembles S for them; cold
-        scenarios are assembled and re-inverted compactly.  Otherwise the
-        Schur matrix is inverted through the gated warm update."""
-        if wi_polish != 0:
-            return make_inv(cache.sinv, wi_polish)(S_thunk())
-        if warm_mask is not None:
-            if n_cold > kcold:
-                return sinv_cold(S_thunk)
-            if n_cold > 0:
-                return cold_fix(cache.sinv, S_thunk(cold_idx))
-            return cache.sinv
-        return cache.sinv if warm_all else sinv_cold(S_thunk)
-
-    # pr_b/du_b/sv_b came from the ADMM kernel's epilogue
-    res_b = _finite_or_inf(pr_b, du_b)
-    polished = torch.zeros_like(res_b, dtype=torch.bool)
-    sinv_last = None if cache is None else cache.sinv
-    # active-set DROP rule across polish rounds: the working iterate w_pol
-    # follows the candidate chain even through rejections, and rows whose
-    # candidate multiplier came out wrong-signed are banned from the next
-    # round's estimate (a stale warm-start dual otherwise pins a row at a
-    # bound it left)
-    eq_rows = (data.u - data.l) <= 1e-9
-    tol_drop = _tol_drop(data)
-    banned = torch.zeros_like(eq_rows)
-    w_pol = best
-    ok_prev = wrong_any_prev = None
-    inf_r = torch.full_like(pr_b, float("inf"))
-    k2 = params.drop_batch
-    for round_i in range(params.polish_rounds if params.polish else 0):
-        if cache is None:
-            # no carried Schur inverse to thread through: each round is the
-            # plain Schur polish from the best iterate
-            pol = _polish(data, best, params, _dense_h(Hinv_polish))
-            pr_p, du_p = kkt_residual(data, pol.x, pol.y)
-            sv_p = _sign_violation(data, pol.x, pol.y)
-        else:
-            compact2 = round_i > 0 and 0 < k2 < B
-            if not compact2:
-                da, b = _masked(data, w_pol, banned)
-            if round_i == 0:
-                pol, sinv_last, pr_p, du_p, sv_p = _polish_batched_kernel(
-                    data, params, H_polish, Hinv_polish, sinv_round1, (da, b))
+        # ---- warm-cache gate ----
+        # per-scenario: a (B,) mask with 0 < cold_batch < B; else batch-level;
+        # no cache: every inverse is cold
+        kcold = params.cold_batch
+        warm_mask = cold_idx = None
+        n_cold = 0
+        warm_all = False
+        if cache is not None and use_warm is not None:
+            use_warm = torch.as_tensor(use_warm, device=dev)
+            if use_warm.ndim >= 1 and 0 < kcold < use_warm.shape[0]:
+                warm_mask = use_warm
+                n_cold = int(_host((~warm_mask).sum()))
+                if 0 < n_cold <= kcold:
+                    cold_idx = torch.topk((~warm_mask).to(torch.float32), kcold).indices
             else:
-                # round 2+ runs only for the scenarios the PREVIOUS round
-                # failed: a drop fired (wrong-signed candidate multiplier)
-                # or the candidate was rejected outright.  Their active set
-                # differs from round 1's, so the carried inverse is an
-                # inverse of the wrong Schur matrix: pay the cold inverse
-                # (or, with wi_polish > 0, warm it from round 1's).
-                changed_i = wrong_any_prev | ~ok_prev
-                fire = _host(changed_i.any())
-                if not fire:
-                    pol, pr_p, du_p, sv_p = best, inf_r, inf_r, inf_r
-                    if compact2:
-                        wrong_any_prev = torch.zeros_like(changed_i)
-                elif compact2:
-                    # COMPACTED: rank the failed scenarios by severity and
-                    # take the k2 worst, a hard cap with no full-batch
-                    # fallback; scenarios beyond it keep round-1 results and
-                    # the staged rescue remains the guarantee
-                    score = torch.where(changed_i, torch.maximum(res_b, sv_b), -inf_r)
-                    idx2 = torch.topk(score, k2).indices
-                    data_c = QPData(*(_take(leaf, idx2) for leaf in data))
-                    w_c = _take_state(w_pol, idx2)
-                    banned_c = _take(banned, idx2)
-                    da_c, b_c = _masked(data_c, w_c, banned_c)
-                    pol_c, _, pr_c, du_c, sv_c = _polish_batched_kernel(
-                        data_c, params, _take_h(H_polish, idx2),
-                        _take_h(Hinv_polish, idx2),
-                        lambda S_thunk: ns_inverse(
-                            S_thunk(), params.ns_iters,
-                            body_prec=params.ns_cold_prec or None,
-                            tail=params.ns_cold_tail),
-                        (da_c, b_c),
-                    )
-                    # topk pads with unchanged rows when fewer than k2
-                    # scenarios changed: mask their candidates out
-                    sel = _take(changed_i, idx2)
-                    inf_c = torch.full_like(pr_c, float("inf"))
-                    pr_c = torch.where(sel, pr_c, inf_c)
-                    du_c = torch.where(sel, du_c, inf_c)
-                    sv_c = torch.where(sel, sv_c, inf_c)
-                    pol = QPState(x=_put(best.x, idx2, pol_c.x),
-                                  z=_put(best.z, idx2, pol_c.z),
-                                  y=_put(best.y, idx2, pol_c.y))
-                    wrong_c = sel[:, None] & _wrong_signed(
-                        data_c, da_c, b_c, pol_c.y, _take(eq_rows, idx2),
-                        _take(tol_drop, idx2))
-                    banned = _put(banned, idx2, banned_c | wrong_c)
-                    wrong_any_prev = _put(torch.zeros_like(changed_i), idx2,
-                                          wrong_c.any(-1))
-                    pr_p, du_p, sv_p = (_put(inf_r, idx2, pr_c), _put(inf_r, idx2, du_c),
-                                        _put(inf_r, idx2, sv_c))
-                else:
-                    sinv_prev = sinv_last
+                warm_all = bool(_host(use_warm.all()))
 
-                    def sinv_round2(S_thunk):
-                        if wi_polish == 0:
-                            return sinv_cold(S_thunk)
-                        return ns_inverse(S_thunk(), params.ns_iters, warm=sinv_prev,
-                                          warm_iters=wi_polish)
+        def cold_fix(X, M_cold):
+            """Overwrite the cold scenarios' rows of X with fresh cold NS
+            inverses of the gathered top-k sub-batch.  topk returns exactly
+            kcold indices: when fewer scenarios are cold the extras are warm
+            ones, whose rows are kept (so which extras are picked is
+            immaterial)."""
+            Xc = ns_inverse(M_cold, params.ns_iters, body_prec=params.ns_cold_prec or None,
+                            tail=params.ns_cold_tail)
+            sel = _take(warm_mask, cold_idx)
+            Xc = torch.where(sel[:, None, None], _take(X, cold_idx), Xc)
+            return _put(X, cold_idx, Xc)
 
+        def make_inv(warm_arr, wi):
+            """The inverse of M gated on the warm mask or the scalar gate:
+            warm scenarios restart from `warm_arr` (wi >= 1 Newton-Schulz
+            iterations, or its safeguarded pass-through at wi = 0), cold ones
+            get a cold inverse."""
+            def warm_update(M):
+                if wi >= 1:
+                    return ns_inverse_warm_shared(M, warm_arr, wi)
+                return ns_inverse(M, params.ns_iters, warm=warm_arr, warm_iters=0)
+
+            def inv(M):
+                if warm_mask is not None and n_cold <= kcold:
+                    X = warm_update(M)
+                    return cold_fix(X, _take(M, cold_idx)) if n_cold > 0 else X
+                if warm_mask is None and warm_all:
+                    return warm_update(M)
+                return ns_inverse(M, params.ns_iters)
+
+            return inv
+
+        Kinv = make_inv(None if cache is None else cache.kinv, params.ns_warm_iters)(K)
+
+        def run_admm(x0, z0, y0, iters):
+            return _admm_res(params, Kinv, sA, sg, sl, su, rho, x0, z0, y0, sH,
+                             data.l, data.u, dscale, escale, iters=iters)
+
+        x, z, y, pr_b, du_b, sv_b = run_admm(wxs, wzs, wys, params.iterations)
+        # cold start (any scenario with an all-zero warm state): spend the init
+        # budget batch-wide, the qpOASES init/hotstart asymmetry
+        extra = max(0, params.cold_iterations - params.iterations)
+        if extra:
+            per_cold = ~((warm.x != 0).any(-1) | (warm.z != 0).any(-1)
+                         | (warm.y != 0).any(-1))
+            if _host(per_cold.any()):
+                x, z, y, pr_b, du_b, sv_b = run_admm(x, z, y, extra)
+        best = QPState(x=dscale * x, z=z / escale, y=escale * y)
+
+        # ---- polish inputs: the regularized H and its inverse, compact from
+        # the caller's closed form or dense ----
+        H_polish = Hinv_polish = None
+        if params.polish and hinv_fn is not None:
+            Hinv_polish = hinv_fn(data.H, params.polish_reg)
+            _, hblk, hstart = Hinv_polish
+            k_ = hblk.shape[-1]
+            diag_reg = torch.diagonal(data.H, dim1=-2, dim2=-1) + params.polish_reg
+            diag_reg = torch.cat(
+                [diag_reg[:, :hstart], torch.zeros_like(diag_reg[:, :k_]),
+                 diag_reg[:, hstart + k_:]], dim=1)
+            blk_reg = data.H[:, hstart:hstart + k_, hstart:hstart + k_] \
+                + params.polish_reg * torch.eye(k_, dtype=dtype, device=dev)
+            H_polish = (diag_reg, blk_reg, hstart)
+        elif params.polish:
+            H_polish = data.H + params.polish_reg * eye_n
+            Hinv_polish = make_inv(None if cache is None else cache.hinv,
+                                   wi_polish)(H_polish)
+
+        def sinv_cold(S_thunk):
+            return ns_inverse(S_thunk(), params.ns_iters)
+
+        def sinv_round1(S_thunk):
+            """With wi_polish = 0, round 1 takes the carried Schur inverse as it
+            is on warm scenarios (a stale-but-finite cache is caught by the
+            polish acceptance residuals) and never assembles S for them; cold
+            scenarios are assembled and re-inverted compactly.  Otherwise the
+            Schur matrix is inverted through the gated warm update."""
+            if wi_polish != 0:
+                return make_inv(cache.sinv, wi_polish)(S_thunk())
+            if warm_mask is not None:
+                if n_cold > kcold:
+                    return sinv_cold(S_thunk)
+                if n_cold > 0:
+                    return cold_fix(cache.sinv, S_thunk(cold_idx))
+                return cache.sinv
+            return cache.sinv if warm_all else sinv_cold(S_thunk)
+
+        # pr_b/du_b/sv_b came from the ADMM kernel's epilogue
+        res_b = _finite_or_inf(pr_b, du_b)
+        polished = torch.zeros_like(res_b, dtype=torch.bool)
+        sinv_last = None if cache is None else cache.sinv
+        # active-set DROP rule across polish rounds: the working iterate w_pol
+        # follows the candidate chain even through rejections, and rows whose
+        # candidate multiplier came out wrong-signed are banned from the next
+        # round's estimate (a stale warm-start dual otherwise pins a row at a
+        # bound it left)
+        eq_rows = (data.u - data.l) <= 1e-9
+        tol_drop = _tol_drop(data)
+        banned = torch.zeros_like(eq_rows)
+        w_pol = best
+        ok_prev = wrong_any_prev = None
+        inf_r = torch.full_like(pr_b, float("inf"))
+        k2 = params.drop_batch
+        for round_i in range(params.polish_rounds if params.polish else 0):
+            if cache is None:
+                # no carried Schur inverse to thread through: each round is the
+                # plain Schur polish from the best iterate
+                pol = _polish(data, best, params, _dense_h(Hinv_polish))
+                pr_p, du_p = kkt_residual(data, pol.x, pol.y)
+                sv_p = _sign_violation(data, pol.x, pol.y)
+            else:
+                compact2 = round_i > 0 and 0 < k2 < B
+                if not compact2:
+                    da, b = _masked(data, w_pol, banned)
+                if round_i == 0:
                     pol, sinv_last, pr_p, du_p, sv_p = _polish_batched_kernel(
-                        data, params, H_polish, Hinv_polish, sinv_round2, (da, b))
-            if not compact2:
-                wrong = _wrong_signed(data, da, b, pol.y, eq_rows, tol_drop)
-                banned = banned | wrong
-                wrong_any_prev = wrong.any(-1)
-            w_pol = pol
-        res_p = _finite_or_inf(pr_p, du_p)
-        ok = torch.maximum(res_p, sv_p) <= torch.maximum(res_b, sv_b)
-        best = _where_state(ok, pol, best)
-        pr_b = torch.where(ok, pr_p, pr_b)
-        du_b = torch.where(ok, du_p, du_b)
-        res_b = torch.where(ok, res_p, res_b)
-        sv_b = torch.where(ok, sv_p, sv_b)
-        polished = polished | ok
-        ok_prev = ok
+                        data, params, H_polish, Hinv_polish, sinv_round1, (da, b))
+                else:
+                    # round 2+ runs only for the scenarios the PREVIOUS round
+                    # failed: a drop fired (wrong-signed candidate multiplier)
+                    # or the candidate was rejected outright.  Their active set
+                    # differs from round 1's, so the carried inverse is an
+                    # inverse of the wrong Schur matrix: pay the cold inverse
+                    # (or, with wi_polish > 0, warm it from round 1's).
+                    changed_i = wrong_any_prev | ~ok_prev
+                    fire = _host(changed_i.any())
+                    if not fire:
+                        pol, pr_p, du_p, sv_p = best, inf_r, inf_r, inf_r
+                        if compact2:
+                            wrong_any_prev = torch.zeros_like(changed_i)
+                    elif compact2:
+                        # COMPACTED: rank the failed scenarios by severity and
+                        # take the k2 worst, a hard cap with no full-batch
+                        # fallback; scenarios beyond it keep round-1 results and
+                        # the staged rescue remains the guarantee
+                        score = torch.where(changed_i, torch.maximum(res_b, sv_b), -inf_r)
+                        idx2 = torch.topk(score, k2).indices
+                        data_c = QPData(*(_take(leaf, idx2) for leaf in data))
+                        w_c = _take_state(w_pol, idx2)
+                        banned_c = _take(banned, idx2)
+                        da_c, b_c = _masked(data_c, w_c, banned_c)
+                        pol_c, _, pr_c, du_c, sv_c = _polish_batched_kernel(
+                            data_c, params, _take_h(H_polish, idx2),
+                            _take_h(Hinv_polish, idx2),
+                            lambda S_thunk: ns_inverse(
+                                S_thunk(), params.ns_iters,
+                                body_prec=params.ns_cold_prec or None,
+                                tail=params.ns_cold_tail),
+                            (da_c, b_c),
+                        )
+                        # topk pads with unchanged rows when fewer than k2
+                        # scenarios changed: mask their candidates out
+                        sel = _take(changed_i, idx2)
+                        inf_c = torch.full_like(pr_c, float("inf"))
+                        pr_c = torch.where(sel, pr_c, inf_c)
+                        du_c = torch.where(sel, du_c, inf_c)
+                        sv_c = torch.where(sel, sv_c, inf_c)
+                        pol = QPState(x=_put(best.x, idx2, pol_c.x),
+                                      z=_put(best.z, idx2, pol_c.z),
+                                      y=_put(best.y, idx2, pol_c.y))
+                        wrong_c = sel[:, None] & _wrong_signed(
+                            data_c, da_c, b_c, pol_c.y, _take(eq_rows, idx2),
+                            _take(tol_drop, idx2))
+                        banned = _put(banned, idx2, banned_c | wrong_c)
+                        wrong_any_prev = _put(torch.zeros_like(changed_i), idx2,
+                                              wrong_c.any(-1))
+                        pr_p, du_p, sv_p = (_put(inf_r, idx2, pr_c), _put(inf_r, idx2, du_c),
+                                            _put(inf_r, idx2, sv_c))
+                    else:
+                        sinv_prev = sinv_last
 
-    if params.rescue_threshold > 0:
-        best, pr_b, du_b, res_b, polished = _rescue_staged(
-            data, params, best, pr_b, du_b, res_b, polished, sv_b,
-            (K, sA, sg, sl, su, rho, sH, dscale, escale), H_polish, Hinv_polish)
+                        def sinv_round2(S_thunk):
+                            if wi_polish == 0:
+                                return sinv_cold(S_thunk)
+                            return ns_inverse(S_thunk(), params.ns_iters, warm=sinv_prev,
+                                              warm_iters=wi_polish)
 
-    info = QPInfo(pr_b, du_b, res_b, polished)
-    if cache is None:
-        return best, info
-    # a compact closed-form H^-1 is recomputed per step and never read back
-    # from the cache: carry the slot through
-    hinv = Hinv_polish if isinstance(Hinv_polish, torch.Tensor) else cache.hinv
-    return best, info, QPCache(kinv=Kinv, hinv=hinv, sinv=sinv_last)
+                        pol, sinv_last, pr_p, du_p, sv_p = _polish_batched_kernel(
+                            data, params, H_polish, Hinv_polish, sinv_round2, (da, b))
+                if not compact2:
+                    wrong = _wrong_signed(data, da, b, pol.y, eq_rows, tol_drop)
+                    banned = banned | wrong
+                    wrong_any_prev = wrong.any(-1)
+                w_pol = pol
+            res_p = _finite_or_inf(pr_p, du_p)
+            ok = torch.maximum(res_p, sv_p) <= torch.maximum(res_b, sv_b)
+            best = _where_state(ok, pol, best)
+            pr_b = torch.where(ok, pr_p, pr_b)
+            du_b = torch.where(ok, du_p, du_b)
+            res_b = torch.where(ok, res_p, res_b)
+            sv_b = torch.where(ok, sv_p, sv_b)
+            polished = polished | ok
+            ok_prev = ok
+
+        if params.rescue_threshold > 0:
+            best, pr_b, du_b, res_b, polished = _rescue_staged(
+                data, params, best, pr_b, du_b, res_b, polished, sv_b,
+                (K, sA, sg, sl, su, rho, sH, dscale, escale), H_polish, Hinv_polish)
+
+        info = QPInfo(pr_b, du_b, res_b, polished)
+        if cache is None:
+            return best, info
+        # a compact closed-form H^-1 is recomputed per step and never read back
+        # from the cache: carry the slot through
+        hinv = Hinv_polish if isinstance(Hinv_polish, torch.Tensor) else cache.hinv
+        return best, info, QPCache(kinv=Kinv, hinv=hinv, sinv=sinv_last)
 
 
 def _rescue_core(params, best, pr_b, du_b, res_b, polished, scaled, data, H_pol,

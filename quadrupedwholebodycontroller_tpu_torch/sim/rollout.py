@@ -138,7 +138,6 @@ def _loop(planner_fn, planner_ratio, carry: RolloutCarry, commands, scenario, co
     return carry, trace
 
 
-@torch.no_grad()
 def batched_rollout(
     model: RobotModel,
     cparams: ControllerParams,
@@ -166,7 +165,13 @@ def batched_rollout(
     the batch, or one payload model per scenario from
     `scenario.apply_payload`).  `mark(k, stage)`, if given, is called at the
     start of control step k's stages "planner", "control", "sim" and at its
-    "end" (for timing; it must not change the state)."""
+    "end" (for timing; it must not change the state).
+
+    Gradients: with qp_backend="torch" the loop runs in the caller's grad
+    mode (the JAX package's `batched_rollout(qp_backend="xla")` carries a
+    gradient); with "kernel" an input that requires grad (a tensor gain of
+    `cparams`, the carry) raises before the first launch, as the JAX
+    package's Pallas path has no reverse mode."""
     cache = make_cache(commands.shape[0], QP_NUM_VARS, QP_NUM_CONSTRAINTS, qparams,
                        commands.dtype, commands.device)
     cache_valid = False
@@ -183,7 +188,6 @@ def batched_rollout(
                  model if sim_model is None else sim_model, sparams, True, mark)
 
 
-@torch.no_grad()
 def rollout(
     model: RobotModel,
     cparams: ControllerParams,
@@ -207,7 +211,10 @@ def rollout(
     `scenario.apply_payload`; shared by the batch or one per scenario)
     simulates a model mismatch.
     Returns (carry, trace) with trace leaves (B, T, ...); `mark` as in
-    `batched_rollout`."""
+    `batched_rollout`.  Runs in the caller's grad mode: a gain of
+    `cparams` may be a 0-d tensor that requires grad, and the gradient
+    flows through the control steps and the simulator as `jax.grad` flows
+    through the JAX function."""
     def control(obs, ref, wcarry, ref_is_new):
         return wbc.wbc_step(model, cparams, qparams, obs, ref, wcarry, ref_is_new)
 

@@ -94,7 +94,9 @@ def _contact_forces(model, kin, u, anchor, params: SimParams, friction=None, J=N
         - params.tangential_damping * foot_v[..., :2]
     cap = friction * fz
     raw_norm = torch.sqrt(torch.sum(raw * raw, dim=-1) + 1e-12)
-    scale = torch.clamp_max(cap / raw_norm, 1.0)
+    # torch.minimum splits the gradient at a tie as jnp.minimum does (a
+    # clamp gives it all to one side); the values are the clamp's
+    scale = torch.minimum(torch.ones_like(raw_norm), cap / raw_norm)
     ft = raw * scale[..., None] * in_contact[..., None]
     # anchor update: out of contact it follows the foot; sliding, it is
     # re-projected so that the spring term alone equals the capped force
