@@ -42,6 +42,15 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  It
      entry points over the same QPs,
   5. replays the unperturbed walk at B = 8 through the main path against the
      float64 torque record `data/torque_cpu64.npz`,
+  5b. drives the solver options that ship off: the main path over steps
+     0..69 under each (`OPTION_CASES`), in lockstep with the defaults, the
+     options that only route buffers or pick a ranking bit for bit the
+     defaults (outputs and cache, every step), the ones the JAX package's
+     record calls safe held to the KKT gates, the others printed; the
+     generic path's QPs of steps 30..69 with the Schur-inverse refresh and
+     the compensated final refinement (the dense H^-1 applied on the card);
+     and the B = 8 torque replay under those two, printed beside the
+     defaults,
   6. drives the exact-derivative paths over steps 0..69: the setup kernel's
      exact mode (K3x) under the shipped solver parameters (printed) and with
      `rescue_batch` = 2048 (asserted), and the finite-difference kernel plus
@@ -1165,12 +1174,16 @@ def record_qps(offsets):
     return rec
 
 
-def generic_path(rec, sigma):
+def generic_path(rec, sigma, qpp=None):
     """The recorded QPs through `solve_batched(hinv_fn=None)` with a carried
     cache, each step warm-started from this path's previous solution (duals
     dropped where the contacts switched), under the recorded per-scenario
-    warm mask; the cache starts empty (mask all False)."""
-    qpp = QPSolverParams(sigma=sigma)
+    warm mask; the cache starts empty (mask all False).  `qpp`: other
+    solver parameters than the shipped ones at `sigma`; their solutions
+    are compared with the main path's, not held to X_TOL (two algorithms
+    part within what the 1e-5 certificate admits)."""
+    shipped = QPSolverParams(sigma=sigma)
+    qpp = shipped if qpp is None else qpp
 
     def run(steps):
         cache = qp.make_cache(BATCH, N, M, qpp, torch.float32, DEV)
@@ -1222,14 +1235,15 @@ def generic_path(rec, sigma):
     admm_k, other = (K5, K1) if sigma else (K1, K5)
     n_flag = check_run(f"the generic path (sigma {sigma})", launches, kernels.plain_counts(),
                        kkts, flagged, (K7, admm_k), (K2, other, K3), len(rec))
-    if n_cert == 0 or worst > X_TOL:
+    if n_cert == 0 or (worst > X_TOL and qpp == shipped):
         raise AssertionError(f"generic (dense H) vs main path (compact H): x differs by "
                              f"{worst:.3e} of its scale where both certify ({n_cert})")
     return launches, {
         "path": "generic", "sigma": sigma, "steps_of_the_walk": [GENERIC_STEPS.start,
                                                                  GENERIC_STEPS.stop - 1],
         **step_summary(ms, kkts, flagged, n_flag, launches, len(rec), qp.HOST_SYNCS),
-        "dense_vs_compact_x": {"max_share_of_scale": worst, "tol": X_TOL,
+        "dense_vs_compact_x": {"max_share_of_scale": worst,
+                               "tol": X_TOL if qpp == shipped else None,
                                "certified_scenario_steps": n_cert,
                                "max_share_of_scale_kkt_only": worst_kkt},
         **by_stage,
@@ -1309,32 +1323,41 @@ def standalone_kernels(rec):
                       "admm_loop_max_kkt": max(kkts)}
 
 
-def torque_parity():
+def torque_errors(qpp):
     """B = 8 unperturbed replay through the main path (fused setup kernel)
-    against the float64 torque record.  Two configurations: the shipped defaults, where a step's
-    torque is held to the record only where the solver certifies it
+    under `qpp` against the float64 torque record: the torque errors
+    (N.m), the KKT residuals, and the steps the solver certifies
+    (relative KKT < 1e-5)."""
+    taus, kk = [], []
+
+    def record(t, o):
+        taus.append(o.tau[0].double().cpu().numpy())
+        kk.append(float(o.qp_info.kkt_residual[0]))
+
+    run_walk(8, qpp, None, record)
+    err = np.abs(np.stack(taus) - TORQUE_F64).max(axis=1)
+    kk = np.asarray(kk)
+    cert = kk < 1e-5
+    return err, kk, cert, {
+        "max_Nm": float(err.max()), "p99_Nm": float(np.percentile(err, 99)),
+        "median_Nm": float(np.median(err)), "step_of_max": int(err.argmax()),
+        "steps_over_1e-3_Nm": int((err > 1e-3).sum()), "max_kkt": float(kk.max()),
+        "certified_steps": int(cert.sum()),
+        "max_Nm_certified": float(err[cert].max()) if cert.any() else None,
+    }
+
+
+def torque_parity():
+    """B = 8 unperturbed replay through the main path against the float64
+    torque record.  Two configurations: the shipped defaults, where a
+    step's torque is held to the record only where the solver certifies it
     (relative KKT < 1e-5; the 3e-3 rescue threshold leaves uncertified
     steps at ADMM accuracy), and the certificate configuration
     (rescue_threshold = 1e-5), held to 1e-3 N.m at every step."""
     out = {}
     for tag, qpp in (("defaults", QPSolverParams()),
                      ("certificate", QPSolverParams(rescue_threshold=1e-5))):
-        taus, kk = [], []
-
-        def record(t, o):
-            taus.append(o.tau[0].double().cpu().numpy())
-            kk.append(float(o.qp_info.kkt_residual[0]))
-
-        run_walk(8, qpp, None, record)
-        err = np.abs(np.stack(taus) - TORQUE_F64).max(axis=1)
-        kk = np.asarray(kk)
-        cert = kk < 1e-5
-        out[tag] = {
-            "max_Nm": float(err.max()), "p99_Nm": float(np.percentile(err, 99)),
-            "median_Nm": float(np.median(err)), "max_kkt": float(kk.max()),
-            "certified_steps": int(cert.sum()),
-            "max_Nm_certified": float(err[cert].max()) if cert.any() else None,
-        }
+        err, kk, cert, out[tag] = torque_errors(qpp)
         if kk.max() > 3e-3:
             raise AssertionError(f"torque parity ({tag}): max KKT {kk.max():.2e} > 3e-3")
         if cert.any() and err[cert].max() > 1e-3:
@@ -1344,6 +1367,158 @@ def torque_parity():
     c = out["certificate"]
     if c["max_Nm"] > 1e-3 or c["certified_steps"] != len(TORQUE_F64):
         raise AssertionError(f"torque parity (certificate): {c}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the solver options that ship off
+# --------------------------------------------------------------------------
+
+# each: its solver parameters and what is held: "bitwise" (every output and
+# the cache, each step, bit for bit the defaults': the options only route
+# buffers or pick a ranking in the JAX package), "gates" (`max_kkt` and the
+# flagged bar; the JAX package's record calls them safe for torque parity),
+# None (printed: its record calls them unsafe for torque parity)
+OPTION_CASES = {
+    "defaults": (QPSolverParams(), "gates"),
+    "cond_hoist_1": (QPSolverParams(cond_hoist=1), "bitwise"),
+    "cond_hoist_2": (QPSolverParams(cond_hoist=2), "bitwise"),
+    "drop_approx_rank_1": (QPSolverParams(drop_approx_rank=1), "bitwise"),
+    "comp_final_refine_2": (QPSolverParams(comp_final_refine=2), "gates"),
+    "drop_sinv_refresh_1": (QPSolverParams(drop_sinv_refresh=1), "gates"),
+    "drop_fire_tol_1e-5": (QPSolverParams(drop_fire_tol=1e-5), "gates"),
+    "drop_warm_iters_8": (QPSolverParams(drop_warm_iters=8), None),
+    "drop_ns_iters_15": (QPSolverParams(drop_ns_iters=15), None),
+}
+# the generic path's and the torque probe's options
+GENERIC_OPTIONS = QPSolverParams(drop_sinv_refresh=1, comp_final_refine=2)
+TORQUE_PROBES = {
+    "comp_final_refine_2": QPSolverParams(comp_final_refine=2),
+    "drop_sinv_refresh_1": QPSolverParams(drop_sinv_refresh=1),
+    "both": QPSolverParams(comp_final_refine=2, drop_sinv_refresh=1),
+}
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return []
+
+
+def option_walk(offsets):
+    """The main path over walk steps 0..69 under each case of
+    OPTION_CASES, in lockstep (every case takes step t before any takes
+    t + 1, the cases' order rotated from step to step so that none always
+    follows the costliest), each case with its own carry, cache, launch
+    counts and StageSpy; a bitwise case's outputs and cache are compared
+    with the defaults' after every step."""
+    model = anymal_d_model(torch.float32, DEV)
+    inputs = [replay.step_inputs(TRAJ, t, BATCH, torch.float32, offsets, DEV)
+              for t in range(COMPARE_STEPS)]
+    runs = {name: dict(carry=wbc.init_carry(BATCH, torch.float32, DEV),
+                       cache=qp.make_cache(BATCH, N, M, qpp, torch.float32, DEV),
+                       spy=StageSpy(), ms=[], kkts=[], flagged=[], syncs=0,
+                       launches=dict.fromkeys(kernels.launch_counts(), 0))
+            for name, (qpp, _) in OPTION_CASES.items()}
+    kernels.reset_counts()
+    for t, (obs, ref, new) in enumerate(inputs):
+        outs = {}
+        names = list(OPTION_CASES)
+        for name in names[t % len(names):] + names[:t % len(names)]:
+            qpp, r = OPTION_CASES[name][0], runs[name]
+            before, syncs0 = kernels.launch_counts(), qp.HOST_SYNCS
+            with r["spy"]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, r["carry"], r["cache"] = wbc.wbc_step_batched(
+                    model, ControllerParams(), qpp, obs, ref, r["carry"], new, "kernel",
+                    r["cache"], t > 0)
+                torch.cuda.synchronize()
+                r["ms"].append((time.perf_counter() - t0) * 1e3)
+            for k, v in kernels.launch_counts().items():
+                r["launches"][k] += v - before[k]
+            r["syncs"] += qp.HOST_SYNCS - syncs0
+            if not torch.isfinite(out.tau).all():
+                raise AssertionError(f"solver option {name}, step {t}: tau not finite")
+            kkt = out.qp_info.kkt_residual
+            r["kkts"].append(float(kkt.max()))
+            r["flagged"].append(int((kkt > qpp.rescue_threshold).sum()))
+            outs[name] = _leaves((out, r["carry"], r["cache"]))
+        for name, (_, held) in OPTION_CASES.items():
+            if held == "bitwise" and not all(
+                    torch.equal(a, b) for a, b in zip(outs[name], outs["defaults"])):
+                raise AssertionError(f"solver option {name}, step {t}: not bit for bit "
+                                     "the defaults")
+    summary = {}
+    for name, (qpp, held) in OPTION_CASES.items():
+        r = runs[name]
+        tag = f"solver option {name}"
+        n_flag = check_run(tag, r["launches"], kernels.plain_counts(), r["kkts"], r["flagged"],
+                           (K3, K1, K2), (K4, K5, K7, K3X), COMPARE_STEPS,
+                           quality=held is not None)
+        stages = r["spy"].by_stage(tag, r["launches"])["k2_launches_by_stage"]
+        steady = sorted(r["ms"][1:])
+        # paired with the defaults step by step: a step's host time moves
+        # with its work (switches, rescues) for every case alike
+        paired = [a - b for a, b in zip(r["ms"][1:], runs["defaults"]["ms"][1:])]
+        summary[name] = {
+            "held": held or "printed",
+            "ms_per_step_median": statistics.median(steady),
+            "ms_per_step_p90": steady[int(0.9 * (len(steady) - 1))],
+            "ms_per_step_mean": statistics.fmean(steady),
+            "ms_over_defaults_median": statistics.median(paired),
+            "max_kkt": max(r["kkts"]), "flagged_max": max(r["flagged"]),
+            "flagged_scenario_steps": n_flag,
+            "k2_launches_per_step": r["launches"][K2] / COMPARE_STEPS,
+            "drop_round_fires": stages.get("drop_round", {}).get("launches", 0),
+            "k2_launches_by_stage": stages,
+            "host_syncs_per_step": r["syncs"] / COMPARE_STEPS,
+        }
+    return summary
+
+
+def solver_options(offsets, rec):
+    """The options that ship off, on the card: the main path over steps
+    0..69 under each (`option_walk`), and the generic path's QPs of steps
+    30..69 under GENERIC_OPTIONS (K7 and the dense H^-1 of the final
+    refinement)."""
+    t0 = time.perf_counter()
+    out = {"main_path_steps": [0, COMPARE_STEPS - 1], "batch": BATCH,
+           "cases": option_walk(offsets)}
+    dense_calls = {"n": 0}
+    orig = qp._hinv_mv
+
+    def hinv_spy(Hinv, v):
+        dense_calls["n"] += isinstance(Hinv, torch.Tensor)
+        return orig(Hinv, v)
+
+    qp._hinv_mv = hinv_spy
+    try:
+        _, generic = generic_path(rec, 0.0, GENERIC_OPTIONS)
+    finally:
+        qp._hinv_mv = orig
+    if dense_calls["n"] == 0:
+        raise AssertionError("the generic path's final refinement applied no dense H^-1")
+    out["generic_path"] = {"options": {"drop_sinv_refresh": 1, "comp_final_refine": 2},
+                           "dense_hinv_mv_calls": dense_calls["n"],
+                           **{k: generic[k] for k in (
+                               "steps", "ms_per_step_median", "max_kkt", "flagged_max",
+                               "launches_per_step", "dense_vs_compact_x",
+                               "k7_launches_by_stage")}}
+    out["seconds_without_torque_probe"] = time.perf_counter() - t0
+    return out
+
+
+def torque_probe(defaults):
+    """Queue 3's probe, printed and not asserted: the B = 8 replay at the
+    shipped rescue threshold under TORQUE_PROBES, beside the defaults."""
+    out = {"defaults": defaults}
+    for tag, qpp in TORQUE_PROBES.items():
+        out[tag] = torque_errors(qpp)[3]
     return out
 
 
@@ -2179,9 +2354,13 @@ def main():
     rec = record_qps(offsets)
     generic = {s_: generic_path(rec, s_) for s_ in (0.0, SIGMA)}
     standalone = standalone_kernels(rec)
+    options = solver_options(offsets, rec)
     del rec
     no_cache = no_cache_step()
     parity = torque_parity()
+    t_probe = time.perf_counter()
+    options["torque_probe"] = torque_probe(parity["defaults"])
+    options["torque_probe_seconds"] = time.perf_counter() - t_probe
     loops = closed_loops()
     payload = payload_physics()
     sweep_runs, flagship = sweeps()
@@ -2212,6 +2391,7 @@ def main():
     emit({"no_cache_step": no_cache, **tag})
     emit({"standalone_kernels": standalone[1], **tag})
     emit({"torque_parity": parity, **tag})
+    emit({"solver_options": options, **tag})
     emit({"rollout": loops, **tag})
     emit({"payload_physics": payload, **tag})
     emit({"sweep": sweep_runs, **tag})

@@ -80,10 +80,10 @@ class PlannerParams:
 class QPSolverParams:
     """Batched OSQP-style ADMM + active-set polish settings.
 
-    The defaults are the shipped configuration of the main path.  Fields
-    marked "kept for parity" exist so both packages build from one dict;
-    the port raises `NotImplementedError` where a caller sets one to a
-    value whose code path has not been ported (see `ops/qp.py`)."""
+    The defaults are the shipped configuration of the main path.  Every
+    field runs on the port; the ones marked "accepted" or "kept for parity"
+    compute the same result at any value (the JAX package reads them for
+    TPU layouts, matmul modes or buffer routing)."""
 
     iterations: int = 40          # ADMM iterations per hot-started solve
     cold_iterations: int = 200    # budget when some warm start is all-zero
@@ -107,19 +107,25 @@ class QPSolverParams:
     rescue_batch: int = 128       # rescue the top-k worst scenarios only
     rescue_stages: int = 3
     rescue_comp_refine: int = 2   # compensated (double-f32) passes
-    comp_final_refine: int = 0    # kept for parity; not ported
+    comp_final_refine: int = 0    # compensated passes on the final iterate
+                                  # before the rescue (both backends)
     cold_batch: int = 512         # per-scenario warm gate: scenarios whose
                                   # contacts switched are re-inverted cold
                                   # on a compacted top-k sub-batch
     drop_batch: int = 64          # cap of the compacted polish drop round
-    drop_fire_tol: float = 0.0    # kept for parity; not ported
-    drop_warm_iters: int = 0      # kept for parity; not ported
-    drop_sinv_refresh: int = 0    # kept for parity; not ported
-    drop_ns_iters: int = 0        # kept for parity; not ported
+    drop_fire_tol: float = 0.0    # drop round: fire only above this
+                                  # max(res, sign violation); 0 = any failure
+    drop_warm_iters: int = 0      # warm the compacted drop round's Schur
+                                  # inverse from the carried rows (0: cold)
+    drop_sinv_refresh: int = 0    # 1: carry the drop round's fresh Schur
+                                  # inverses into the cache
+    drop_ns_iters: int = 0        # the drop round's cold budget (0: ns_iters)
     ns_cold_prec: str = "high"    # accepted and ignored: the port runs the
     ns_cold_tail: int = 10        # cold chains at full float32 throughout
-    cond_hoist: int = 0           # kept for parity; not ported
-    drop_approx_rank: int = 0     # kept for parity; not ported
+    cond_hoist: int = 0           # accepted and not read: it routes lax.cond
+                                  # buffers in the JAX package, same values
+    drop_approx_rank: int = 0     # accepted: the drop round ranks with the
+                                  # exact topk (JAX's approx_max_k on a TPU)
     rescue_round2_batch: int = 32  # cap of the rescue's compacted round 2+
     solve_layout: str = "minor"   # kept for parity and ignored: the port
                                   # is batch-major end to end

@@ -220,6 +220,18 @@ def _dense_h(t):
     return _blockdiag_dense(t) if isinstance(t, tuple) else t
 
 
+def _hinv_mv(Hinv, v):
+    """Apply the polish H^-1 (compact (diag, blk, start) or dense) as a
+    batched matvec; the compact form is never densified."""
+    if isinstance(Hinv, tuple):
+        diag, blk, start = Hinv
+        k = blk.shape[-1]
+        return torch.cat([diag[:, :start] * v[:, :start],
+                          _mv(blk, v[:, start:start + k]),
+                          diag[:, start + k:] * v[:, start + k:]], dim=1)
+    return _mv(Hinv, v)
+
+
 def _finite_bound_scale(data: QPData):
     zero = torch.zeros_like(data.l)
     return torch.maximum(
@@ -351,15 +363,17 @@ def _accept_better(best, pr_b, du_b, res_b, polished, cand, pr_c, du_c,
             torch.where(ok, res_c, res_b), pol)
 
 
-def _polish_comp(data: QPData, state: QPState, params: QPSolverParams, Hinv=None):
+def _polish_comp(data: QPData, state: QPState, params: QPSolverParams, Hinv=None,
+                 passes=None):
     """Compensated (double-float32) active-set polish candidate.
 
     Re-estimate the active set from `state`, solve the regularized KKT
-    system with the plain Schur pipeline, then run `rescue_comp_refine`
-    refinement passes whose residuals are computed with error-free
-    transformations (ops/compensated.py): once the iterate is a few digits
-    accurate a plain float32 residual is cancellation noise, while the
-    compensated residual is exact to ~eps * |r|.  Preconditioner
+    system with the plain Schur pipeline, then run `passes` refinement
+    passes (default max(rescue_comp_refine, 1)) whose residuals are
+    computed with error-free transformations (ops/compensated.py): once
+    the iterate is a few digits accurate a plain float32 residual is
+    cancellation noise, while the compensated residual is exact to
+    ~eps * |r|.  Preconditioner
     applications stay plain products.  Hinv: the polish H^-1 (dense or
     compact); None: a cold Newton-Schulz inverse of H + reg I.  Returns
     (candidate, pr, du)."""
@@ -384,7 +398,7 @@ def _polish_comp(data: QPData, state: QPState, params: QPSolverParams, Hinv=None
         dim=-2,
     )
     rhs = torch.cat([-data.g, da * b], dim=-1)
-    for _ in range(max(params.rescue_comp_refine, 1)):
+    for _ in range(max(params.rescue_comp_refine, 1) if passes is None else passes):
         r = comp.comp_residual(rhs, Kfull, torch.cat([x, y], dim=-1))
         r1, r2 = r[..., :n], r[..., n:]
         dy = _mv(Sinv, _mv(Bm, _mv(Hinv_d, r1)) - r2)
@@ -395,6 +409,48 @@ def _polish_comp(data: QPData, state: QPState, params: QPSolverParams, Hinv=None
     pol = QPState(x=x, z=torch.minimum(torch.maximum(ax, data.l), data.u), y=y)
     pr, du = kkt_residual(data, pol.x, pol.y)
     return pol, pr, du
+
+
+def _comp_refine_final(data: QPData, state: QPState, params: QPSolverParams, Hinv, sinv):
+    """`comp_final_refine` compensated refinement passes on the final
+    iterate, with the preconditioners already in hand: the polish H^-1
+    (compact or dense, applied by `_hinv_mv`) and the last polish round's
+    Schur inverse `sinv` (B, m, m); no new Newton-Schulz inverse.  Each
+    pass re-estimates the active set from the current iterate (a
+    mis-classified row shows up as a wrong-signed multiplier and drops
+    out) and computes r1 = -g - (H + reg I) x - B^T y and
+    r2 = da b - B x - D y, each in one compensated accumulation (the
+    cancellation at stationarity is between blocks).  Returns
+    (candidate, pr, du); the caller accepts it on the sign-augmented
+    residual."""
+    reg = torch.full_like(state.x, params.polish_reg)
+    x, y = state.x, state.y
+    for _ in range(params.comp_final_refine):
+        da, b = _assemble_active(data, QPState(x=x, z=state.z, y=y))
+        Bm = da[:, :, None] * data.A
+        Bt = Bm.transpose(-1, -2)
+        D = (1.0 - da) - params.polish_reg * da
+        r1 = comp.comp_residual_chain(-data.g, mat_terms=((data.H, x), (Bt, y)),
+                                      diag_terms=((reg, x),))
+        r2 = comp.comp_residual_chain(da * b, mat_terms=((Bm, x),), diag_terms=((D, y),))
+        dy = _mv(sinv, _mv(Bm, _hinv_mv(Hinv, r1)) - r2)
+        dx = _hinv_mv(Hinv, r1 - _mv(Bt, dy))
+        x = x + dx
+        y = y + dy
+    ax = _mv(data.A, x)
+    pol = QPState(x=x, z=torch.minimum(torch.maximum(ax, data.l), data.u), y=y)
+    pr, du = kkt_residual(data, pol.x, pol.y)
+    return pol, pr, du
+
+
+def _merge_final(data: QPData, pre, cand, pr_c, du_c):
+    """Merge a final-refinement candidate into `pre` = (best, pr, du, res,
+    polished), per scenario where its sign-augmented residual is no worse
+    (`_accept_better`), value only (`_ad_passthrough`)."""
+    with torch.no_grad():
+        post = _accept_better(*_sg(pre), cand, pr_c, du_c, _finite_or_inf(pr_c, du_c),
+                              _sg(data))
+    return _ad_passthrough(pre, post)
 
 
 def _polish(data: QPData, state: QPState, params: QPSolverParams, Hinv, banned=None,
@@ -475,8 +531,8 @@ def solve(data: QPData, warm: QPState, params: QPSolverParams = QPSolverParams()
     the rescue's budgets and keep the result where the plain KKT residual
     is no worse.  Each stage runs on the scenarios still in it.
 
-    The kernel-only options (`_LATER`) do not apply: this algorithm never
-    reads them."""
+    As in the JAX package, this function reads none of `comp_final_refine`
+    and the drop round's options (`drop_*`, `cond_hoist`)."""
     B, m, n = data.A.shape
     dtype, dev = data.H.dtype, data.H.device
     eye_n = torch.eye(n, dtype=dtype, device=dev)
@@ -642,27 +698,6 @@ def _polish_batched_kernel(data: QPData, params: QPSolverParams, H_reg, Hinv,
     return QPState(x=x, z=z, y=y), sinv, pr, du, sv
 
 
-_LATER = {
-    "comp_final_refine": 0, "drop_fire_tol": 0.0, "drop_warm_iters": 0,
-    "drop_sinv_refresh": 0, "drop_ns_iters": 0, "cond_hoist": 0,
-    "drop_approx_rank": 0,
-}
-
-
-def _check_supported(params: QPSolverParams, backend):
-    """The kernel path reads every option of `_LATER`; the torch backend
-    reads only `comp_final_refine` of them."""
-    if backend not in ("kernel", "torch"):
-        raise ValueError(f"backend={backend!r}: 'kernel' (the solver kernels) or "
-                         "'torch' (the single-sample algorithm, tensor code)")
-    later = _LATER if backend == "kernel" else {"comp_final_refine": 0}
-    for name, off in later.items():
-        if getattr(params, name) != off:
-            raise NotImplementedError(
-                f"{name}={getattr(params, name)!r}: this option ships off "
-                "and is not ported (a later slice, if ever needed)")
-
-
 def _admm_res(params: QPSolverParams, *args, iters: int):
     """The ADMM kernel with its residual epilogue that `params.sigma` picks:
     the constraint-space iteration at sigma = 0, the x-space one above."""
@@ -686,12 +721,13 @@ def solve_batched(
     (state, info).
 
     backend: "kernel" (the solver kernels, below) or "torch": `solve` with
-    its rescue off, then the batch-level rescue `_rescue_batched`, the JAX
-    package's "xla" backend.  The torch backend keeps no factorizations
-    (a given cache comes back as it went in), ignores `use_warm` and
-    `prepared`, and reads `hinv_fn` only for the rescue's compensated
-    candidates.  It runs in the caller's grad mode (the gradient of the
-    JAX package's "xla" backend).  The kernel backend has no backward, as
+    its rescue off, then `comp_final_refine` compensated passes (a
+    `_polish_comp` candidate), then the batch-level rescue
+    `_rescue_batched`, the JAX package's "xla" backend.  The torch backend
+    keeps no factorizations (a given cache comes back as it went in),
+    ignores `use_warm` and `prepared`, and reads `hinv_fn` only for the
+    compensated candidates.  It runs in the caller's grad mode (the
+    gradient of the JAX package's "xla" backend).  The kernel backend has no backward, as
     the JAX package's Pallas backend has none: with grad mode on, an input
     that requires grad raises before anything launches
     (`kernels.build.refuse_grad`); otherwise it runs under
@@ -713,9 +749,22 @@ def solve_batched(
     prepared: the 11 tensors of `prepare.prepare_scaled` for this `data` and
     `warm`, already computed (the fused setup kernel's tail): the prepare
     stage is skipped and they are taken as they are."""
-    _check_supported(params, backend)
+    if backend not in ("kernel", "torch"):
+        raise ValueError(f"backend={backend!r}: 'kernel' (the solver kernels) or "
+                         "'torch' (the single-sample algorithm, tensor code)")
     if backend == "torch":
         st, info = solve(data, warm, dataclasses.replace(params, rescue_threshold=0.0))
+        if params.comp_final_refine > 0 and params.polish:
+            # the compensated final refinement, before the rescue as on the
+            # kernel path; no carried inverses here: _polish_comp derives
+            # its own (H^-1 from hinv_fn where one is given)
+            with torch.no_grad():
+                data_sg = _sg(data)
+                Hinv = hinv_fn(data_sg.H, params.polish_reg) if hinv_fn is not None else None
+                cand, pr_c, du_c = _polish_comp(data_sg, _sg(st), params, Hinv,
+                                                passes=params.comp_final_refine)
+            st, *rest = _merge_final(data, (st, *info), cand, pr_c, du_c)
+            info = QPInfo(*rest)
         if params.rescue_threshold > 0:
             st, info = _rescue_batched(data, st, info, params, hinv_fn)
         return (st, info) if cache is None else (st, info, cache)
@@ -879,7 +928,16 @@ def solve_batched(
                     # differs from round 1's, so the carried inverse is an
                     # inverse of the wrong Schur matrix: pay the cold inverse
                     # (or, with wi_polish > 0, warm it from round 1's).
+                    # `cond_hoist` only routes the JAX package's lax.cond
+                    # buffers (every output bitwise the same for 0, 1, 2);
+                    # host branches have none to route, so it is not read.
+                    sinv_prev = sinv_last
                     changed_i = wrong_any_prev | ~ok_prev
+                    if params.drop_fire_tol > 0:
+                        # only scenarios whose current best sign-augmented
+                        # residual still exceeds the bar enter the round
+                        changed_i = changed_i & (torch.maximum(res_b, sv_b)
+                                                 > params.drop_fire_tol)
                     fire = _host(changed_i.any())
                     if not fire:
                         pol, pr_p, du_p, sv_p = best, inf_r, inf_r, inf_r
@@ -889,22 +947,33 @@ def solve_batched(
                         # COMPACTED: rank the failed scenarios by severity and
                         # take the k2 worst, a hard cap with no full-batch
                         # fallback; scenarios beyond it keep round-1 results and
-                        # the staged rescue remains the guarantee
+                        # the staged rescue remains the guarantee.  With
+                        # `drop_approx_rank` the JAX package ranks with
+                        # lax.approx_max_k (about 0.95 recall on a TPU, top_k's
+                        # indices on a CPU); the exact topk stands in for it.
                         score = torch.where(changed_i, torch.maximum(res_b, sv_b), -inf_r)
                         idx2 = torch.topk(score, k2).indices
                         data_c = QPData(*(_take(leaf, idx2) for leaf in data))
                         w_c = _take_state(w_pol, idx2)
                         banned_c = _take(banned, idx2)
                         da_c, b_c = _masked(data_c, w_c, banned_c)
-                        pol_c, _, pr_c, du_c, sv_c = _polish_batched_kernel(
+                        if params.drop_warm_iters > 0:
+                            # warm from the carried rows; ns_inverse's
+                            # divergence guard falls back to the cold start
+                            warm_c = _take(sinv_prev, idx2)
+
+                            def sinv_drop(S_thunk):
+                                return ns_inverse(S_thunk(), params.ns_iters, warm=warm_c,
+                                                  warm_iters=params.drop_warm_iters)
+                        else:
+                            def sinv_drop(S_thunk):
+                                return ns_inverse(S_thunk(),
+                                                  params.drop_ns_iters or params.ns_iters,
+                                                  body_prec=params.ns_cold_prec or None,
+                                                  tail=params.ns_cold_tail)
+                        pol_c, sinv_c, pr_c, du_c, sv_c = _polish_batched_kernel(
                             data_c, params, _take_h(H_polish, idx2),
-                            _take_h(Hinv_polish, idx2),
-                            lambda S_thunk: ns_inverse(
-                                S_thunk(), params.ns_iters,
-                                body_prec=params.ns_cold_prec or None,
-                                tail=params.ns_cold_tail),
-                            (da_c, b_c),
-                        )
+                            _take_h(Hinv_polish, idx2), sinv_drop, (da_c, b_c))
                         # topk pads with unchanged rows when fewer than k2
                         # scenarios changed: mask their candidates out
                         sel = _take(changed_i, idx2)
@@ -915,6 +984,11 @@ def solve_batched(
                         pol = QPState(x=_put(best.x, idx2, pol_c.x),
                                       z=_put(best.z, idx2, pol_c.z),
                                       y=_put(best.y, idx2, pol_c.y))
+                        if params.drop_sinv_refresh:
+                            # the re-solved scenarios carry their fresh
+                            # Schur inverses into the cache
+                            sinv_last = _put(sinv_prev, idx2, torch.where(
+                                sel[:, None, None], sinv_c, _take(sinv_prev, idx2)))
                         wrong_c = sel[:, None] & _wrong_signed(
                             data_c, da_c, b_c, pol_c.y, _take(eq_rows, idx2),
                             _take(tol_drop, idx2))
@@ -924,8 +998,6 @@ def solve_batched(
                         pr_p, du_p, sv_p = (_put(inf_r, idx2, pr_c), _put(inf_r, idx2, du_c),
                                             _put(inf_r, idx2, sv_c))
                     else:
-                        sinv_prev = sinv_last
-
                         def sinv_round2(S_thunk):
                             if wi_polish == 0:
                                 return sinv_cold(S_thunk)
@@ -948,6 +1020,19 @@ def solve_batched(
             sv_b = torch.where(ok, sv_p, sv_b)
             polished = polished | ok
             ok_prev = ok
+
+        if (params.comp_final_refine > 0 and params.polish and Hinv_polish is not None
+                and sinv_last is not None):
+            # compensated refinement of the final iterate with the polish
+            # preconditioners in hand, before the rescue so that tightened
+            # scenarios need it less
+            cand, pr_c, du_c = _comp_refine_final(data, best, params, Hinv_polish,
+                                                  sinv_last)
+            # as in the JAX package, the rescue's first fire flag pairs the
+            # merged residual with the incumbent's sign violation
+            sv_b = _sign_violation(data, best.x, best.y)
+            best, pr_b, du_b, res_b, polished = _merge_final(
+                data, (best, pr_b, du_b, res_b, polished), cand, pr_c, du_c)
 
         if params.rescue_threshold > 0:
             best, pr_b, du_b, res_b, polished = _rescue_staged(

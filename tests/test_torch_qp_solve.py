@@ -208,15 +208,24 @@ def test_ruiz_equilibrate_matches_jax():
 
 
 def test_options_of_the_torch_backend():
-    """`comp_final_refine` raises (the JAX xla path reads it; it ships off
-    and is not ported); the kernel-only knobs are not read; an unknown
-    backend is a ValueError."""
+    """`comp_final_refine` runs (the JAX xla path reads it): a scenario
+    whose compensated candidate is not accepted keeps the result of the
+    run without it bit for bit, an accepted one takes the candidate; the
+    kernel-only knobs are not read; an unknown backend is a ValueError."""
     data, warm = _inputs("mixed")
     d = qp.QPData(*(torch.as_tensor(a) for a in data))
     w = qp.QPState(*(torch.as_tensor(a) for a in warm))
-    with pytest.raises(NotImplementedError, match="comp_final_refine"):
-        qp.solve_batched(d, w, QPSolverParams(comp_final_refine=1), "torch")
     base = qp.solve_batched(d, w, QPSolverParams(), "torch")
+    refined = qp.solve_batched(d, w, QPSolverParams(comp_final_refine=1), "torch")
+    cand, pr_c, du_c = qp._polish_comp(d, base[0], QPSolverParams(), passes=1)
+    res_c = torch.maximum(pr_c, du_c)
+    ok = torch.maximum(res_c, qp._sign_violation(d, cand.x, cand.y)) <= torch.maximum(
+        base[1].kkt_residual, qp._sign_violation(d, base[0].x, base[0].y))
+    assert ok.any() and not ok.all(), ok
+    for got, kept, new in zip(refined[0], base[0], cand):
+        assert torch.equal(got[~ok], kept[~ok])
+        assert torch.equal(got[ok], new[ok])
+    assert torch.equal(refined[1].kkt_residual[~ok], base[1].kkt_residual[~ok])
     knobs = qp.solve_batched(d, w, dataclasses.replace(
         QPSolverParams(), drop_warm_iters=4, cond_hoist=1, drop_batch=1), "torch")
     assert torch.equal(base[0].x, knobs[0].x)
